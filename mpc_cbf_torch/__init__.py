@@ -6,9 +6,11 @@ PyTorch, and the one Pallas kernel of the JAX package (the fused
 structured-ADMM loop, ``mpc_cbf_tpu/ops/qp/pallas_admm.py``) is a CUDA C++
 kernel for Hopper (``csrc/structured_admm.cu``, built by ``_build.py``).
 
-Ported so far (slice 1): the fov/connectivity MPC-CBF control step
-through ``controllers.mpc_cbf.StructuredIMPC`` with the structured ADMM
-(``ops.qp.structured``) as the solver.
+Ported so far: the fov/connectivity MPC-CBF control step through
+``controllers.mpc_cbf.StructuredIMPC`` with the structured ADMM
+(``ops.qp.structured``, slice 1) or the Mehrotra IPM family
+(``ops.qp.ipm``: the f32 entry, the f64 IPM and the f32 -> f64 hybrid,
+slice 2), and the structured closed loop ``parallel.MultiAgentSim``.
 """
 
 __version__ = "0.1.0"

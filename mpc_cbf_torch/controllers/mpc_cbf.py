@@ -24,11 +24,11 @@ Slack weights are distance-ranked (nearest neighbor keeps the highest
 violation price): w_i = slack_cost * decay^rank(i)
 (ConnectivityIMPCCBF.cpp:74-101).
 
-Ported: the structured (Woodbury ADMM) batch driver ``StructuredIMPC``
-and the assembly it needs. Not yet: the dense ``optimize``/``assemble``
-path with ``BezierMPCCBF``, the λ₂/CLF rows of
-``ConnectivityIMPCCBF(enable_connectivity=True)``, the IPM and hybrid
-solvers and the f64 polish.
+Ported: the structured batch controller ``StructuredIMPC`` over the Woodbury
+ADMM, the f32/f64 Mehrotra IPM and the f32 -> f64 hybrid IPM, and the
+assembly they need. Not yet: the dense ``optimize``/``assemble`` path with
+``BezierMPCCBF``, the λ₂/CLF rows of
+``ConnectivityIMPCCBF(enable_connectivity=True)`` and the f64 polish.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from mpc_cbf_torch.types import BIG, State
 from mpc_cbf_torch.ops.cbf import FovCBF, ConnectivityCBF
 from mpc_cbf_torch.ops.geometry import distance_to_ellipse
 from mpc_cbf_torch.ops.qp.structured import StructuredConfig, StructuredQPOperator
+from mpc_cbf_torch.ops.qp.ipm import HybridIPM, HybridIPMConfig, IPMConfig, StructuredIPM
 from mpc_cbf_torch.controllers.bezier_mpc import BezierMPCOperator
 
 Tensor = torch.Tensor
@@ -77,11 +78,12 @@ class IMPCResult(NamedTuple):
     pri_res: Tensor        # [B] worst primal residual across iterations
     iterates: Tensor       # [impc_iter, B, n_dec] per-iteration solutions
     # final ADMM duals (unscaled row coords) — feed back as warm_duals to
-    # the next replan step
+    # the next replan step; None on the IPM family, which keeps no duals
     ys: Optional[Tensor] = None
     yd: Optional[Tensor] = None
     # [B] bool: the flown curve carries the <1e-3 deviation certificate —
-    # always False on the raw f32 ADMM path, the only one ported
+    # the last solve's `converged` on certifying solvers (the f64 IPM and
+    # the hybrid), all False on the f32 ADMM and the f32 IPM
     certified: Optional[Tensor] = None
 
 
@@ -363,45 +365,61 @@ class ConnectivityIMPCCBF(_IMPCCBFBase):
 
 
 class StructuredIMPC:
-    """Batched IMPC-CBF driver over the structure-exploiting solver.
+    """Batched IMPC-CBF loop over the structure-exploiting solvers.
 
     Wraps a FovIMPCCBF / ConnectivityIMPCCBF and runs the whole agent (x
-    scenario) batch through one StructuredQPOperator solve per IMPC
-    iteration (see ops/qp/structured.py). Only the f32 ADMM configuration
-    (``StructuredConfig`` without polish) is ported.
+    scenario) batch through one solve per IMPC iteration: the structured
+    ADMM (ops/qp/structured.py), the Mehrotra IPM or the hybrid IPM
+    (ops/qp/ipm.py).
     """
 
-    def __init__(self, ctrl: _IMPCCBFBase, cfg: Optional[StructuredConfig] = None):
-        """cfg: StructuredConfig; None is the JAX package's default budget
-        of 150 iterations."""
+    def __init__(self, ctrl: _IMPCCBFBase, cfg=None):
+        """cfg: StructuredConfig (the f32 ADMM; None is the JAX package's
+        default budget of 150 iterations), IPMConfig (the Mehrotra IPM:
+        IPM_F32_ENTRY is the raw production profile, IPMConfig() the
+        certified f64 one) or HybridIPMConfig (f32 entry + f64 tail;
+        HYBRID_PROD is the shipping certified pipeline)."""
         self.ctrl = ctrl
         self.cfg = cfg if cfg is not None else StructuredConfig(iters=150)
-        if not isinstance(self.cfg, StructuredConfig):
-            raise NotImplementedError(
-                f"{type(self.cfg).__name__}: only the structured ADMM "
-                "(StructuredConfig) is ported to mpc_cbf_torch; the IPM and "
-                "hybrid solvers are not yet")
-        if self.cfg.polish:
-            raise NotImplementedError("the f64 active-set polish is not ported yet")
         op = ctrl.op
         P, A_s, eq_mask = ctrl.static_parts()
-        q_hint = ctrl.impc.slack_cost if ctrl.impc.slack_mode else 0.0
-        # slack nonnegativity rows sit LAST in A_s (static_parts); the stiff
-        # rho phase scales them with the dynamic rows
-        m_s = A_s.shape[0]
-        guards = tuple(range(m_s - ctrl.S, m_s)) if ctrl.S else ()
-
-        def operator(cfg):
-            return StructuredQPOperator(P, A_s, eq_mask, ctrl.m_dynamic, cfg,
-                                        device=op.device, dtype=op.dtype,
-                                        q_scale_hint=q_hint, polish_guard_rows=guards)
-
-        self.op_qp = operator(self.cfg)
-        # warm solves (IMPC iterations > 0) enter with carried duals and a
-        # near-solution primal, so they can run a reduced budget
         self.op_qp_tail = None
-        if self.cfg.iters_tail is not None and self.cfg.iters_tail != self.cfg.iters:
-            self.op_qp_tail = operator(dataclasses.replace(self.cfg, iters=self.cfg.iters_tail))
+        if isinstance(self.cfg, HybridIPMConfig):
+            hyb = HybridIPM(P, A_s, eq_mask, ctrl.m_dynamic, self.cfg, device=op.device)
+            if self.cfg.entry_only_first:
+                # iteration 0 runs only the f32 entry (it seeds iteration
+                # 1's predicted-state rows); later iterations run the full
+                # hybrid and carry the certificate of the flown curve
+                self.op_qp, self.op_qp_tail = hyb.entry, hyb
+            else:
+                self.op_qp = hyb
+        elif isinstance(self.cfg, IPMConfig):
+            self.op_qp = StructuredIPM(P, A_s, eq_mask, ctrl.m_dynamic, self.cfg,
+                                       device=op.device)
+        elif isinstance(self.cfg, StructuredConfig):
+            if self.cfg.polish:
+                raise NotImplementedError("the f64 active-set polish is not ported yet")
+            q_hint = ctrl.impc.slack_cost if ctrl.impc.slack_mode else 0.0
+            # slack nonnegativity rows sit LAST in A_s (static_parts); the
+            # stiff rho phase scales them with the dynamic rows
+            m_s = A_s.shape[0]
+            guards = tuple(range(m_s - ctrl.S, m_s)) if ctrl.S else ()
+
+            def operator(cfg):
+                return StructuredQPOperator(P, A_s, eq_mask, ctrl.m_dynamic, cfg,
+                                            device=op.device, dtype=op.dtype,
+                                            q_scale_hint=q_hint, polish_guard_rows=guards)
+
+            self.op_qp = operator(self.cfg)
+            # warm solves (IMPC iterations > 0) enter with carried duals and
+            # a near-solution primal, so they can run a reduced budget
+            if self.cfg.iters_tail is not None and self.cfg.iters_tail != self.cfg.iters:
+                self.op_qp_tail = operator(
+                    dataclasses.replace(self.cfg, iters=self.cfg.iters_tail))
+        else:
+            raise NotImplementedError(
+                f"{type(self.cfg).__name__}: StructuredIMPC takes a StructuredConfig, "
+                "an IPMConfig or a HybridIPMConfig")
 
         hs = list(np.asarray(op.h_samples[: ctrl.impc.cbf_horizon]))
         self._pos_E = op.tensor(op.pw.eval_matrix(hs, 0))
@@ -416,11 +434,14 @@ class StructuredIMPC:
 
         warm: [B, n] primal warm start (e.g. the h-shifted previous
         curve). warm_duals: (ys [B, m_s], yd [B, m_d]) unscaled duals from
-        the previous replan step's IMPCResult."""
+        the previous replan step's IMPCResult (ADMM only; the IPM family
+        ignores both warm starts). coeffs come back in the dtype of
+        ``current``, whatever the solver's compute dtype."""
         ctrl, op = self.ctrl, self.ctrl.op
         H = ctrl.impc.cbf_horizon
         B = ref_positions.shape[0]
         dev = current.pos.device
+        dt = current.pos.dtype
 
         q = ctrl.cost_vector(current, ref_positions, neighbor_blob, neighbor_mask)
         lb_s, ub_s = ctrl.shared_bounds(current)
@@ -454,21 +475,32 @@ class StructuredIMPC:
                 else self.op_qp_tail
             sol = op_solve.solve(q, lb_s, ub_s, A_d, lb_d, ub_d, x0=x0,
                                  ys0=ys0, yd0=yd0)
-            coeffs = sol.z[:, : op.n_dec]
+            # back to the caller's dtype: an f64 solve must not leak into an
+            # f32 caller (the round-off is far below the 1e-3 certificate)
+            coeffs = sol.z[:, : op.n_dec].to(dt)
             x0 = sol.z
-            ys0, yd0 = sol.ys, sol.yd
+            ys0, yd0 = getattr(sol, "ys", None), getattr(sol, "yd", None)
             finite = torch.all(torch.isfinite(sol.z), dim=-1)
             usable = sol.converged | ((sol.pri_res <= ctrl.USABLE_PRI_EPS) & finite)
             best = torch.where(usable[:, None], coeffs, best)
             any_ok = any_ok | usable
             all_ok = all_ok & sol.converged
-            worst = torch.maximum(worst, sol.pri_res)
+            worst = torch.maximum(worst, sol.pri_res.to(dt))
             iterates.append(coeffs)
 
         last_finite = torch.all(torch.isfinite(coeffs), dim=-1)
         fly = torch.where(any_ok[:, None], best,
                           torch.where(last_finite[:, None], coeffs, best))
+        # certificate of the flown curve: the last iteration's solution is
+        # the flown one whenever usable, and only a certifying solver's
+        # converged flag means <1e-3 deviation
+        if hasattr(sol, "certified"):          # ADMM family
+            cert = sol.certified
+        elif op_solve.certifies:
+            cert = sol.converged               # f64 IPM / hybrid calibrated bars
+        else:
+            cert = torch.zeros(B, dtype=torch.bool, device=dev)
         return IMPCResult(coeffs=fly, success=any_ok,
                           flyable=any_ok | last_finite, all_converged=all_ok,
                           pri_res=worst, iterates=torch.stack(iterates, dim=0),
-                          ys=ys0, yd=yd0, certified=sol.certified)
+                          ys=ys0, yd=yd0, certified=cert)

@@ -1,6 +1,6 @@
-"""Geometry primitives on the ported slice: separating hyperplanes and
-confidence-ellipse distances (counterpart of ``mpc_cbf_tpu/ops/geometry.py``
-lines 29-120).
+"""Geometry primitives on the ported slices: separating hyperplanes,
+confidence-ellipse distances and yaw wrapping (counterpart of
+``mpc_cbf_tpu/ops/geometry.py`` lines 29-120 and 139-150).
 
 Reference parity:
 - Voronoi hyperplane: ``separating_hyperplanes/src/Voronoi.cpp:10-29``
@@ -10,9 +10,10 @@ Reference parity:
   ``mpc_cbf/src/controller/FovBezierIMPCCBF.cpp:226-291`` /
   ``math/src/Geometry.cpp:8-57`` (closestPointOnEllipse)
 
+- yaw wrapping: ``math/src/Geometry.cpp:76-86``, ``Geometry.h:77-104``
+
 Branch-free (``torch.where``), operating on the last axis and broadcasting
-over leading axes. FOV tests, yaw helpers and control rotations are not on
-the slice yet.
+over leading axes. FOV tests and control rotations are not ported yet.
 """
 
 from __future__ import annotations
@@ -116,3 +117,18 @@ def distance_to_ellipse(robot_xy: torch.Tensor, mean_xy: torch.Tensor,
     signed = torch.where(d_center < rng, -dist, dist)
     # infinite covariance -> sensor lost the target: reference returns -5
     return torch.where(torch.isinf(cov2[..., 0, 0]), torch.full_like(signed, -5.0), signed)
+
+
+def convert_yaw_in_range(yaw: torch.Tensor) -> torch.Tensor:
+    """Wrap yaw into (-pi, pi] (Geometry.cpp:76-86)."""
+    return torch.where(yaw > math.pi, yaw - 2 * math.pi,
+                       torch.where(yaw < -math.pi, yaw + 2 * math.pi, yaw))
+
+
+def convert_to_closest_yaw(current_yaw: torch.Tensor, goal_yaw: torch.Tensor) -> torch.Tensor:
+    """Pick goal_yaw + {0, ±2π} closest to current_yaw (Geometry.h:77-104).
+    On a tie the first candidate wins (``torch.argmin`` keeps the first
+    minimum, as ``jnp.argmin`` does)."""
+    cands = torch.stack([goal_yaw, goal_yaw + 2 * math.pi, goal_yaw - 2 * math.pi], dim=-1)
+    idx = torch.argmin(torch.abs(cands - current_yaw[..., None]), dim=-1)
+    return torch.take_along_dim(cands, idx[..., None], dim=-1)[..., 0]

@@ -7,7 +7,11 @@ start to both packages:
   E_s, gamma, Pb, A_sb and each phase's Ms_inv, rho_s and rho_d);
 - ``state_from_numpy``: a ``State``;
 - ``warm_start_from_numpy`` / ``warm_start_to_numpy``: the warm primal and
-  the warm duals (ys, yd) of an ``IMPCResult``, both ways.
+  the warm duals (ys, yd) of an ``IMPCResult``, both ways (None duals for
+  the IPM family, which keeps none);
+- ``ipm_state_from_numpy`` / ``ipm_state_to_numpy``: the interior state
+  (v, t, zl, zu) of an ``IPMSolution``, both ways, so one package's f32
+  entry can feed the other's f64 tail.
 """
 
 from __future__ import annotations
@@ -70,11 +74,28 @@ def warm_start_from_numpy(coeffs, ys, yd, n: int, *, device, dtype
                   to_tensor(yd, device=device, dtype=dtype))
 
 
-def warm_start_to_numpy(res: IMPCResult, n: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+def _numpy(a: Optional[torch.Tensor]) -> Optional[np.ndarray]:
+    return None if a is None else a.detach().cpu().numpy()
+
+
+def warm_start_to_numpy(res: IMPCResult, n: int
+                        ) -> Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray]]:
     """(warm [B, n], ys, yd) as numpy from the port's IMPCResult, in the
     form the JAX package's ``optimize_batch(warm=..., warm_duals=(ys, yd))``
-    takes."""
-    coeffs = res.coeffs.detach().cpu().numpy()
+    takes. ys and yd are None for an IPM-family result."""
+    coeffs = _numpy(res.coeffs)
     warm = np.zeros((coeffs.shape[0], n), coeffs.dtype)
     warm[:, : coeffs.shape[1]] = coeffs
-    return warm, res.ys.detach().cpu().numpy(), res.yd.detach().cpu().numpy()
+    return warm, _numpy(res.ys), _numpy(res.yd)
+
+
+def ipm_state_from_numpy(state, *, device, dtype) -> Tuple[torch.Tensor, ...]:
+    """An IPM interior state (v [B, nz], t [B, m], zl [B, m], zu [B, m]) as
+    tensors, for ``StructuredIPM.solve(..., state0=...)``."""
+    return tuple(to_tensor(a, device=device, dtype=dtype) for a in state)
+
+
+def ipm_state_to_numpy(state) -> Tuple[np.ndarray, ...]:
+    """The port's ``IPMSolution.state`` as numpy, in the form the JAX
+    package's ``StructuredIPM.solve(..., state0=...)`` takes."""
+    return tuple(_numpy(a) for a in state)
