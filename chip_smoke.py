@@ -5,45 +5,78 @@
 Run from the root of a checkout on a machine with a CUDA GPU (built for
 sm_90a: an H100). It
 1. prints the card (nvidia-smi name and power limit);
-2. builds the CUDA kernels from csrc/ into build/kernels/ and times it;
-3. holds the fused ADMM kernel against its plain PyTorch twin at the fov
-   flagship shapes (ragged batch of 1000 lanes, 40 iterations) to
-   rtol = atol = 2e-4, and times both at 8192 lanes for each rho phase
-   length of a control step (150 + 50 cold, 32 + 32 warm);
-4. drives the main path — StructuredIMPC(FovIMPCCBF) with the structured
-   ADMM (iters 200, tail 64) on 8192 lanes of bench.py's fov recipe —
-   checks that it launched the kernel 4 times per call and that every
+2. builds the CUDA kernels from csrc/ into build/kernels/ (one nvcc per
+   source, started together) and times it;
+3. holds every variant of the fused ADMM kernel against its plain PyTorch
+   twin at 40 iterations to rtol = atol = 2e-4: tiled at the fov shapes
+   (1001 lanes: a ragged last block) and the connectivity shapes (1001),
+   resident at the 32-agent connectivity shapes (36, 126, 62) and streamed
+   at the 32-agent fov shapes (n = 67, m_d = 372) on 64 lanes, the two
+   generic kernels launched by name at the fov shapes, a batch smaller than
+   a block (3 lanes), and a NaN lane that must leave every other lane
+   bitwise untouched (the inputs carry inactive rows with rho = 1e-12 and
+   bounds of +-1e20);
+4. times kernel and twin for each rho phase length of a control step (150 +
+   50 cold, 32 + 32 warm) at 8192 fov and 32768 connectivity lanes, with
+   the first version beside the tiled kernel, and at the lanes and phase
+   lengths a launch of step 7 gets: the resident kernel at 4096 lanes (4 x
+   50 iterations), the streamed kernel at one lane chunk of 2048 (550 + 50
+   + 150 + 50); prints each time beside its bound (the slowest of the
+   float32 operations, the float64 operations and the bytes, from the
+   shapes and the card's peaks);
+5. drives the main path (StructuredIMPC(FovIMPCCBF) with the structured
+   ADMM (iters 200, tail 64) on 8192 lanes of bench.py's fov recipe),
+   checks that it launched the tiled kernel 4 times per call and that every
    flyable lane is finite, times 5 calls, and runs the same call through
-   the plain loop: the usable-lane rates must agree within 1 point;
-5. runs one connectivity control step at 32768 lanes;
-6. holds the f64 IPM on the card against the same solve on the host CPU
+   the plain loop: the usable-lane rates must agree within 1 point and stay
+   at or above 0.70;
+6. runs one connectivity control step at 32768 lanes (tiled kernel, 4
+   launches, usable >= 0.99);
+7. runs one 32-agent control step of benchmarks/swarm.py's recipe (128
+   scenarios x 32 agents = 4096 lanes) through the ADMM: connectivity (100
+   iterations; the resident kernel) and fov (600, tail 200, neighbours
+   masked to the sensing range; the streamed kernel with lane_chunk auto =
+   2 chunks, 4 launches each): finite flyable lanes, time, usable rate and
+   peak device memory;
+8. holds the f64 IPM on the card against the same solve on the host CPU
    (512 fov lanes: converged flags, z to 1e-3);
-7. drives the f32 Mehrotra IPM (IPM_F32_ENTRY, bench.py's default solver)
+9. drives the f32 Mehrotra IPM (IPM_F32_ENTRY, bench.py's default solver)
    on the fov recipe at 8192 lanes: 5 timed calls after a warm-up, the
    usable rate (bar 0.98), peak device memory, one call with a sync around
    each stage, one call under torch.profiler (kernel launches per call,
    device share of cholesky_ex + cholesky_solve) and one call at chunk = 0;
-8. the f32 IPM on connectivity at 32768 lanes (usable bar 0.99);
-9. HYBRID_PROD (f32 entry + 12-iteration f64 tail) on the fov recipe at
-   8192 lanes: certified lanes must be usable lanes, certified rate >= 0.95;
-10. a closed loop: MultiAgentSim(structured=True) with IPM_F32_ENTRY, 8 fov
+10. the f32 IPM on connectivity at 32768 lanes (usable bar 0.99), one timed
+    call;
+11. HYBRID_PROD (f32 entry + 12-iteration f64 tail) on the fov recipe at
+    8192 lanes: certified lanes must be usable lanes, certified rate >= 0.95;
+12. a closed loop: MultiAgentSim(structured=True) with IPM_F32_ENTRY, 8 fov
     robots x 1024 scenarios (random_instance seeds 0..1023) = 8192 lanes a
-    step, 60 steps (6 s); every trajectory must be finite, and the mean
+    step, 20 steps (2 s); every trajectory must be finite, and the mean
     per-step solver success and the instance_success share are reported.
 Any failure raises (exit code 1). The last two lines are a JSON record of
 the kernels and {"ok": true, "device": {...}}. Without a GPU, or without
 the repository beside it, it exits non-zero and prints no result.
+Cut against earlier versions to stay within the same time: the closed loop
+flies 20 steps, not 60, and the connectivity IPM times one call, not three.
 
-Expected on one NVIDIA H100 80GB HBM3 at 700 W (four runs, PERF.md;
-the wall times follow the host): the kernel within 1.4e-5 of its twin,
-38.5-38.9 ms per ADMM control step; fov ADMM usable 0.7089, 170-237 ms per
-call; connectivity ADMM usable 0.9933, ~95 ms; the f64 IPM on the card
-within 2.5e-4 of the host CPU; fov f32 IPM usable 0.9974, 530-850 ms per
-call at chunk 2048 and 268-377 ms at chunk 0, ~46k kernel launches per
-call, peak 0.48 GiB; connectivity f32 IPM usable 1.0000, 2.8-3.2 s;
-HYBRID_PROD certified 0.9873, 0.93-1.23 s; closed loop 0.85-1.0 s per
-step, solver success 0.9888, instance_success 0.0 (the JAX package flies
-these 6-s random instances to the same places). About 135-160 s in all.
+Expected on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md; the wall times
+follow the host): every kernel variant within 3.1e-5 of its twin; one fov
+control step's four phases at 8192 lanes 16.1 ms in the tiled kernel
+(bound 1.40 ms, 8.7 % of it reached; first version 39.2-39.7 ms, twin
+144-272 ms); connectivity at 32768 lanes 19.4 ms (bound 2.51 ms, 12.9 %;
+first version 84.8 ms); the resident kernel 10.2 ms for the 32-agent
+connectivity step's four launches (bound 0.39 ms), the streamed kernel
+596 ms for one 2048-lane chunk of the 32-agent fov step (bound 4.65 ms;
+its twin 587-601 ms); fov ADMM usable 0.7097 (plain route 0.7095), 150-415
+ms per call; connectivity ADMM usable 0.9933, 27-31 ms; 32-agent
+connectivity usable 1.0000, 35-70 ms; 32-agent fov usable 0.9888, 1.8-2.4
+s, peak 6.35 GiB; the f64 IPM on the card within 2.5e-4 of the host CPU;
+fov f32 IPM usable 0.9974, 500-1400 ms per call at chunk 2048 and 220-430
+ms at chunk 0, ~46k kernel launches per call; connectivity f32 IPM usable
+1.0000, 2.5-4.2 s; HYBRID_PROD certified 0.9873, 0.74-1.53 s; closed loop
+0.6-1.3 s per step, solver success 0.99, instance_success 0.0 (the JAX
+package flies these random instances to the same places). About 110-200 s
+in all.
 """
 
 from __future__ import annotations
@@ -74,9 +107,43 @@ from mpc_cbf_torch.utils.metrics import instance_success
 DEV = torch.device("cuda")
 F32 = torch.float32
 FOV_SHAPES = dict(n=43, m_s=127, m_d=84)      # fov flagship: 36 + 7 slack columns
+CONN_SHAPES = dict(n=36, m_s=126, m_d=6)      # 4-robot connectivity
+SWARM_CONN_SHAPES = dict(n=36, m_s=126, m_d=62)   # 32-agent connectivity
 PHASES = (150, 50, 32, 32)                   # cold soft/stiff, warm soft/stiff
 RTOL = ATOL = 2e-4                           # tests/test_pallas_admm.py:53-55
 KERNEL = fused_admm.structured_admm_iterations
+KW = dict(sigma=1e-6, alpha=1.6)
+SOURCES = {"tiled": "mpc_cbf_torch/csrc/structured_admm_tiled.cu",
+           "resident": "mpc_cbf_torch/csrc/structured_admm.cu",
+           "streamed": "mpc_cbf_torch/csrc/structured_admm.cu"}
+# the card's peaks, NVIDIA's H100 SXM data sheet at 700 W: float32 outside the
+# tensor cores, float64 on the tensor cores (the tiled kernel runs their
+# mma.sync.m8n8k4.f64), HBM3
+PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 67e12, 3.35e12
+SWARM_PHASES = {"connectivity": (50, 50, 50, 50),     # StructuredConfig(iters=100), cold and warm
+                "fov": (550, 50, 150, 50)}            # iters=600, iters_tail=200
+
+
+def reset_counts() -> None:
+    KERNEL.launches = 0
+    KERNEL.launches_by_variant = dict.fromkeys(fused_admm.VARIANTS, 0)
+
+
+def bound(B: int, n: int, m_s: int, m_d: int, phases) -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    one launch per entry of ``phases`` (iterations each) on B lanes. Per lane
+    and iteration the loop does [A_s; A_d]'r, A_d S and [A_s; A_d] xt in
+    float32 and Ms_inv RHS and WK t in float64, each at its own peak on a
+    pipe of its own, so the slower of the two sets the time of the
+    operations; every launch reads each input once and writes each output
+    once."""
+    m = m_s + m_d
+    f32 = 2 * (2 * m * n + m_d * n)
+    f64 = 2 * (n * n + n * m_d)
+    ops = B * sum(phases) * max(f32 / PEAK_F32, f64 / PEAK_F64)
+    per_lane = 4 * (2 * n + 4 * m_s + 5 * m_d + 2 * n * m_d) + 4 * (n + 2 * m)
+    moved = len(phases) * (B * per_lane + 4 * (n * n + m_s * n + m_s)) / PEAK_BYTES
+    return max(ops, moved) * 1e3, "operations" if ops >= moved else "bytes"
 
 
 def log(msg: str) -> None:
@@ -121,46 +188,108 @@ def build() -> None:
             log(f"  {line.strip()}")
 
 
-def phase_inputs(B: int, seed: int):
-    arrays = fused_admm.random_phase_inputs(np.random.default_rng(seed), B, **FOV_SHAPES)
+def phase_inputs(B: int, seed: int, shapes=FOV_SHAPES):
+    arrays = fused_admm.random_phase_inputs(np.random.default_rng(seed), B, **shapes)
     return [torch.from_numpy(a).to(DEV) for a in arrays]
 
 
-def check_kernel(B: int = 1000, iters: int = 40) -> float:
-    """Kernel against the twin on one ragged batch; returns the max abs error."""
-    args = phase_inputs(B, seed=0)
-    kw = dict(iters=iters, sigma=1e-6, alpha=1.6)
-    out_k = KERNEL(*args, **kw)
-    out_t = fused_admm.structured_admm_iterations_ref(*args, **kw)
-    torch.cuda.synchronize()
+def max_dev(out_k, out_t, what: str) -> float:
     err = 0.0
     for name, k, t in zip(("x", "zs", "zd", "ys", "yd"), out_k, out_t):
         dev = (k - t).abs()
         bad = int((dev > ATOL + RTOL * t.abs()).sum())
         if bad or not bool(torch.isfinite(k).all()):
-            raise AssertionError(f"kernel vs twin, {name}: {bad} entries beyond "
+            raise AssertionError(f"{what}, kernel vs twin, {name}: {bad} entries beyond "
                                  f"rtol=atol={RTOL}, max |dev| {float(dev.max()):.3e}")
         err = max(err, float(dev.max()))
-    log(f"kernel vs twin at B={B}, {iters} iterations: max |dev| {err:.3e} "
-        f"(rtol = atol = {RTOL})")
     return err
 
 
-def time_phases(B: int = 8192):
-    """Device ms of kernel and twin per rho phase length at B lanes."""
-    args = phase_inputs(B, seed=1)
-    out = {}
-    for iters in sorted(set(PHASES)):
-        kw = dict(iters=iters, sigma=1e-6, alpha=1.6)
-        k_ms = cuda_ms(lambda: KERNEL(*args, **kw), reps=5)
-        t_ms = cuda_ms(lambda: fused_admm.structured_admm_iterations_ref(*args, **kw), reps=2)
-        out[iters] = (k_ms, t_ms)
-        log(f"phase of {iters:3d} iterations at B={B}: kernel {k_ms:.3f} ms, "
-            f"plain twin {t_ms:.3f} ms ({t_ms / k_ms:.1f}x)")
-    k_sum = sum(out[i][0] for i in PHASES)
-    t_sum = sum(out[i][1] for i in PHASES)
-    log(f"one control step's 4 phases at B={B}: kernel {k_sum:.3f} ms, twin {t_sum:.3f} ms")
-    return k_sum, t_sum
+def check_kernel(swarm_fov_shapes, iters: int = 40) -> dict:
+    """Every kernel variant against the twin; returns the max abs error of
+    each row of the kernels record."""
+    SWARM_FOV_SHAPES = swarm_fov_shapes
+    cases = [  # (row of the record, what, shapes, lanes, kernel launched by name or None)
+        ("tiled_fov", "fov", FOV_SHAPES, 1001, None),
+        ("tiled_fov", "fov, fewer lanes than a block", FOV_SHAPES, 3, None),
+        ("tiled_connectivity", "connectivity", CONN_SHAPES, 1001, None),
+        ("tiled_connectivity", "connectivity, fewer lanes than a block", CONN_SHAPES, 3, None),
+        ("resident", "32-agent connectivity", SWARM_CONN_SHAPES, 64, None),
+        ("resident", "fov through the first version", FOV_SHAPES, 100, "resident"),
+        ("streamed", "32-agent fov", SWARM_FOV_SHAPES, 64, None),
+        ("streamed", "fov through the streamed kernel", FOV_SHAPES, 100, "streamed"),
+    ]
+    errs = {}
+    for row, what, shapes, B, variant in cases:
+        args = phase_inputs(B, seed=0, shapes=shapes)
+        reset_counts()
+        if variant is None:                   # the kernel of the shape, through the wrapper
+            out_k = KERNEL(*args, iters=iters, **KW)
+            took = [v for v, c in KERNEL.launches_by_variant.items() if c]
+            if took != [row.split("_")[0]]:
+                raise AssertionError(f"{what}: launched {took}, expected the {row} kernel")
+        else:                                 # a generic kernel on a shape that takes another
+            out_k = fused_admm.launch_variant(fused_admm._lib(), variant, args, iters=iters, **KW)
+            took = [variant]
+        out_t = fused_admm.structured_admm_iterations_ref(*args, iters=iters, **KW)
+        torch.cuda.synchronize()
+        err = max_dev(out_k, out_t, what)
+        errs[row] = max(errs.get(row, 0.0), err)
+        log(f"kernel vs twin, {what} {tuple(shapes.values())} at B={B}, {iters} iterations "
+            f"({took[0]}): max |dev| {err:.3e} (rtol = atol = {RTOL})")
+
+    # a NaN lane leaves every other lane, those of its block too, bitwise untouched
+    for what, shapes, bad_lane in (("fov", FOV_SHAPES, 5), ("connectivity", CONN_SHAPES, 10)):
+        args = phase_inputs(37, seed=2, shapes=shapes)
+        clean = KERNEL(*args, iters=iters, **KW)
+        args[3] = args[3].clone()
+        args[3][bad_lane] = float("nan")              # the lane's cost vector q
+        dirty = KERNEL(*args, iters=iters, **KW)
+        torch.cuda.synchronize()
+        keep = torch.arange(37, device=DEV) != bad_lane
+        if not bool(torch.isnan(dirty[0][bad_lane]).all()):
+            raise AssertionError(f"{what}: the NaN lane came out finite")
+        if not all(torch.equal(c[keep], d[keep]) for c, d in zip(clean, dirty)):
+            raise AssertionError(f"{what}: a NaN lane changed another lane")
+        log(f"NaN lane, {what}: lane {bad_lane} is NaN, the other 36 lanes are bitwise unchanged")
+    return errs
+
+
+def time_phases(what: str, shapes, B: int, phases=PHASES, first_version: bool = False,
+                reps: int = 5) -> dict:
+    """Device ms of the kernel (the variant the shape takes) and the twin
+    per rho phase length at B lanes, beside the bound; with first_version,
+    the resident kernel too. Returns the sums over ``phases``: the launches
+    one control step makes on B lanes."""
+    args = phase_inputs(B, seed=1, shapes=shapes)
+    lib = fused_admm._lib()
+    per = {}
+    for iters in sorted(set(phases)):
+        kw = dict(iters=iters, **KW)
+        k_ms = cuda_ms(lambda: KERNEL(*args, **kw), reps=reps)
+        f_ms = cuda_ms(lambda: fused_admm.launch_variant(lib, "resident", args, **kw), reps=3) \
+            if first_version else None
+        t_ms = cuda_ms(lambda: fused_admm.structured_admm_iterations_ref(*args, **kw),
+                       reps=min(reps, 2))
+        b_ms, _ = bound(B, **shapes, phases=(iters,))
+        per[iters] = (k_ms, t_ms, f_ms)
+        log(f"{what}, phase of {iters:3d} iterations at B={B}: kernel {k_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({100 * b_ms / k_ms:.1f} % of it reached), plain twin {t_ms:.3f} ms"
+            + (f", first version {f_ms:.3f} ms" if first_version else ""))
+    k_sum, t_sum = (sum(per[i][j] for i in phases) for j in (0, 1))
+    b_ms, by = bound(B, **shapes, phases=phases)
+    out = dict(ms=k_sum, plain_ms=t_sum, bound_ms=b_ms, bound_by=by, lanes=B, phases=list(phases))
+    msg = (f"{what}, {len(phases)} phases {phases} at B={B}: kernel {k_sum:.3f} ms, bound "
+           f"{b_ms:.3f} ms by {by} (peaks {PEAK_F32 / 1e12:.0f} / {PEAK_F64 / 1e12:.0f} TFLOP/s "
+           f"float32 / float64, {PEAK_BYTES / 1e12:.2f} TB/s): {100 * b_ms / k_sum:.1f} % of "
+           f"the bound reached; twin {t_sum:.3f} ms")
+    if first_version:
+        f_sum = sum(per[i][2] for i in phases)
+        msg += f"; first version {f_sum:.3f} ms ({f_sum / k_sum:.2f}x)"
+        if f_sum <= k_sum:
+            raise AssertionError(f"{what}: the tiled kernel is not faster than the first version")
+    log(msg)
+    return out
 
 
 def fov_controller(N: int = 7):
@@ -170,6 +299,44 @@ def fov_controller(N: int = 7):
     cbf = FovCBF(120.0 * np.pi / 180.0, 0.3, 6.0, mpc.v_min, mpc.v_max)
     return FovIMPCCBF(op, cbf, IMPCParams(slack_mode=True), N,
                       box_half_extents=np.array([0.1, 0.1, 0.0]))
+
+
+def swarm_problem(mode: str, scenarios: int, A: int = 32):
+    """benchmarks/swarm.py's recipe (:44-55, :76-104): `scenarios` rings of A
+    agents, every (scenario, agent) pair one lane; fov neighbours masked to
+    the sensing range. Returns the controller and optimize_batch's inputs."""
+    mpc = MPCParams()
+    if mode == "fov":
+        ctrl = fov_controller(A - 1)
+    else:
+        op = BezierMPCOperator(BezierParams(), mpc, dim=3, device=DEV, dtype=F32)
+        ctrl = ConnectivityIMPCCBF(op, ConnectivityCBF(1.0, 6.0, mpc.v_min, mpc.v_max),
+                                   IMPCParams(), A - 1)
+    rng = np.random.default_rng(0)
+    ang = 2 * np.pi * np.arange(A) / A
+    R = max(4.0, A * 1.2 / (2 * np.pi) * 2)               # ring with > 1.2 m spacing
+    base = np.stack([R * np.cos(ang), R * np.sin(ang), np.zeros(A)], -1)
+    pos = base[None] + rng.normal(0, 0.05, (scenarios, A, 3))
+    vel = np.zeros_like(pos)
+    goals = np.broadcast_to(np.roll(base, -1, axis=0), pos.shape)
+    others = np.stack([np.delete(np.arange(A), i) for i in range(A)])
+    B = scenarios * A
+    if mode == "fov":
+        cov = np.broadcast_to(np.array([0.05, 0.0, 0.05]), (scenarios, A, A - 1, 3))
+        blob = np.concatenate([pos[:, others, :2], cov], -1).reshape(B, A - 1, 5)
+        dist = np.linalg.norm(pos.reshape(B, 1, 3)[..., :2] - blob[..., :2], axis=-1)
+        mask = dist < 5.5
+    else:
+        blob = np.concatenate([pos, vel], -1)[:, others].reshape(B, A - 1, 6)
+        mask = np.ones((B, A - 1), bool)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=F32, device=DEV)
+    ref = t(np.tile(goals.reshape(B, 3), (1, mpc.k_hor)))
+    cur = State(pos=t(pos.reshape(B, 3)), vel=t(vel.reshape(B, 3)))
+    return ctrl, (cur, ref, t(blob), torch.as_tensor(mask, device=DEV))
+
+
+def controller_shapes(ctrl) -> dict:
+    return dict(n=ctrl.n, m_s=ctrl.static_parts()[1].shape[0], m_d=ctrl.m_dynamic)
 
 
 def bench_problem(mode: str, batch: int):
@@ -202,8 +369,12 @@ def bench_problem(mode: str, batch: int):
     return ctrl, (State(pos=pos, vel=vel), ref, t(nbr), mask)
 
 
+def admm_stepper(ctrl, **cfg):
+    return StructuredIMPC(ctrl, StructuredConfig(iters=200, iters_tail=64, **cfg))
+
+
 def control_step(ctrl, inputs, **cfg):
-    simpc = StructuredIMPC(ctrl, StructuredConfig(iters=200, iters_tail=64, **cfg))
+    simpc = admm_stepper(ctrl, **cfg)
     return lambda: simpc.optimize_batch(*inputs)
 
 
@@ -217,17 +388,19 @@ def check_result(res, batch: int) -> float:
 
 def fov_main_path(batch: int = 8192):
     ctrl, inputs = bench_problem("fov", batch)
-    step = control_step(ctrl, inputs)
+    simpc = admm_stepper(ctrl)
+    step = lambda: simpc.optimize_batch(*inputs)
     step()                                   # warm-up (torch.func, cuBLAS, cuSOLVER)
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    KERNEL.launches = 0
+    reset_counts()
     res = step()
     torch.cuda.synchronize()
     launches = KERNEL.launches
-    if launches != 4:
-        raise AssertionError(f"main path launched the kernel {launches} times, expected 4")
+    if launches != 4 or KERNEL.launches_by_variant["tiled"] != 4:
+        raise AssertionError(f"main path launched the kernel {launches} times "
+                             f"({KERNEL.launches_by_variant}), expected the tiled one 4 times")
     usable = check_result(res, batch)
     log(f"fov main path, {batch} lanes: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -244,19 +417,23 @@ def fov_main_path(batch: int = 8192):
     log(f"fov main path, {batch} lanes, kernel: usable {usable:.4f}, median {t_k * 1e3:.2f} ms "
         f"of 5 calls ({min(times) * 1e3:.2f}..{max(times) * 1e3:.2f}), "
         f"{batch * 2 / t_k:.1f} solves/s")
+    stage_split(simpc, inputs)
+    profile_call(step)
+    before = KERNEL.launches
 
     plain = control_step(ctrl, inputs, use_kernel=False)
     plain()
     t0 = sync_clock()
     res_t = plain()
     t_t = sync_clock() - t0
-    if KERNEL.launches != launches + 20:
+    if KERNEL.launches != before:
         raise AssertionError("the plain loop launched the kernel")
     usable_t = check_result(res_t, batch)
     log(f"fov main path, {batch} lanes, plain loop: usable {usable_t:.4f}, "
         f"{t_t * 1e3:.2f} ms, {batch * 2 / t_t:.1f} solves/s")
-    if abs(usable - usable_t) > 0.01:
-        raise AssertionError(f"usable rates differ: kernel {usable:.4f}, plain {usable_t:.4f}")
+    if abs(usable - usable_t) > 0.01 or usable < 0.70:
+        raise AssertionError(f"usable rates: kernel {usable:.4f}, plain {usable_t:.4f} "
+                             "(bars: within 0.01 of each other, kernel >= 0.70)")
     both = res_k.success & res_t.success
     dev = (res_k.coeffs - res_t.coeffs).abs().amax(-1)[both]
     log(f"  kernel vs plain coefficients on {int(both.sum())} lanes usable in both: "
@@ -266,19 +443,59 @@ def fov_main_path(batch: int = 8192):
     return launches
 
 
-def connectivity_path(batch: int = 32768) -> None:
+def connectivity_path(batch: int = 32768) -> int:
     ctrl, inputs = bench_problem("connectivity", batch)
     step = control_step(ctrl, inputs)
     step()
-    before = KERNEL.launches
+    reset_counts()
     t0 = sync_clock()
     res = step()
     dt = sync_clock() - t0
-    if KERNEL.launches - before != 4:
-        raise AssertionError("connectivity step did not launch the kernel 4 times")
+    launches = KERNEL.launches
+    if launches != 4 or KERNEL.launches_by_variant["tiled"] != 4:
+        raise AssertionError(f"connectivity step launched {KERNEL.launches_by_variant}, "
+                             "expected the tiled kernel 4 times")
     usable = check_result(res, batch)
     log(f"connectivity, {batch} lanes, kernel: usable {usable:.4f}, {dt * 1e3:.2f} ms, "
         f"{batch * 2 / dt:.1f} solves/s")
+    if usable < 0.99:
+        raise AssertionError(f"connectivity ADMM usable rate {usable:.4f} < 0.99")
+    return launches
+
+
+def swarm_path(mode: str, ctrl, inputs, variant: str, timed: dict) -> int:
+    """One 32-agent control step of benchmarks/swarm.py (SWARM_SOLVER=admm)
+    through the kernel route; returns the kernel launches of the call.
+    ``timed``: the kernel-alone row of this path, which must have been
+    taken at this step's lanes per launch and phase lengths."""
+    batch = inputs[0].pos.shape[0]
+    cfg = StructuredConfig(iters=600, iters_tail=200) if mode == "fov" \
+        else StructuredConfig(iters=100)
+    simpc = StructuredIMPC(ctrl, cfg)
+    chunk = simpc.op_qp._lane_chunk(batch) or batch
+    phases = [p[0] for op in (simpc.op_qp, simpc.op_qp_tail or simpc.op_qp) for p in op.phases]
+    if (chunk, phases) != (timed["lanes"], timed["phases"]):
+        raise AssertionError(f"32-agent {mode} step launches {chunk} lanes for {phases} "
+                             f"iterations; timed alone at {timed['lanes']}, {timed['phases']}")
+    step = lambda: simpc.optimize_batch(*inputs)
+    step()                                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = sync_clock()
+    res = step()
+    dt = sync_clock() - t0
+    expected = 4 * -(-batch // chunk)         # 2 IMPC iterations x 2 rho phases per chunk
+    if KERNEL.launches != expected or KERNEL.launches_by_variant[variant] != expected:
+        raise AssertionError(f"32-agent {mode} step launched {KERNEL.launches_by_variant}, "
+                             f"expected the {variant} kernel {expected} times")
+    usable = check_result(res, batch)
+    log(f"32-agent {mode}, {batch} lanes, ADMM {cfg.iters} iterations, lane_chunk auto = "
+        f"{chunk} lanes ({-(-batch // chunk)} chunks), {variant} kernel x{expected}: usable "
+        f"{usable:.4f}, flyable {float(res.flyable.float().mean()):.4f}, {dt * 1e3:.2f} ms, "
+        f"{batch * 2 / dt:.1f} solves/s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return expected
 
 
 def timed_calls(step, n: int):
@@ -408,7 +625,7 @@ def fov_ipm_path(batch: int = 8192) -> None:
     step()                                    # warm-up (cuSOLVER, cuBLAS, torch.func)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    KERNEL.launches = 0
+    reset_counts()
     res, times = timed_calls(step, 5)
     if KERNEL.launches:
         raise AssertionError("the IPM control step launched the ADMM kernel")
@@ -437,7 +654,7 @@ def connectivity_ipm_path(batch: int = 32768) -> None:
     simpc = StructuredIMPC(ctrl, IPM_F32_ENTRY)
     step = lambda: simpc.optimize_batch(*inputs)
     step()
-    res, times = timed_calls(step, 3)
+    res, times = timed_calls(step, 1)
     usable = check_result(res, batch)
     log(f"connectivity f32 IPM, {batch} lanes: usable {usable:.4f}, {spread(times)}, "
         f"{batch * 2 / statistics.median(times):.1f} solves/s")
@@ -466,7 +683,7 @@ def fov_hybrid_path(batch: int = 8192) -> None:
     stage_split(simpc, inputs)
 
 
-def closed_loop(robots: int = 8, scenarios: int = 1024, steps: int = 60) -> None:
+def closed_loop(robots: int = 8, scenarios: int = 1024, steps: int = 20) -> None:
     """MultiAgentSim rollout of fov teams with the f32 IPM, all scenarios
     as one batch of robots x scenarios lanes per step."""
     tasks = [random_instance(robots, seed=s)["tasks"] for s in range(scenarios)]
@@ -506,20 +723,42 @@ def main() -> int:
         return 1
     card()
     build()
-    err = check_kernel()
-    k_ms, t_ms = time_phases()
-    launches = fov_main_path()
-    connectivity_path()
+    swarm = {mode: swarm_problem(mode, scenarios=128) for mode in ("connectivity", "fov")}
+    swarm_shapes = {mode: controller_shapes(ctrl) for mode, (ctrl, _) in swarm.items()}
+    if swarm_shapes["connectivity"] != SWARM_CONN_SHAPES or swarm_shapes["fov"]["m_d"] != 372:
+        raise AssertionError(f"32-agent shapes {swarm_shapes}")
+    errs = check_kernel(swarm_shapes["fov"])
+    rows = {
+        "tiled_fov": time_phases("fov", FOV_SHAPES, 8192, first_version=True),
+        "tiled_connectivity": time_phases("connectivity", CONN_SHAPES, 32768,
+                                          first_version=True),
+        # at the lanes and phase lengths the 32-agent steps below give a launch:
+        # all 4096 lanes, and one lane chunk of 2048
+        "resident": time_phases("32-agent connectivity", SWARM_CONN_SHAPES, 4096,
+                                phases=SWARM_PHASES["connectivity"]),
+        "streamed": time_phases("32-agent fov", swarm_shapes["fov"], 2048,
+                                phases=SWARM_PHASES["fov"], reps=1),
+    }
+    rows["tiled_fov"]["launches"] = fov_main_path()
+    rows["tiled_connectivity"]["launches"] = connectivity_path()
+    rows["resident"]["launches"] = swarm_path("connectivity", *swarm["connectivity"], "resident",
+                                             rows["resident"])
+    rows["streamed"]["launches"] = swarm_path("fov", *swarm["fov"], "streamed", rows["streamed"])
+    del swarm
+    torch.cuda.empty_cache()
     ipm_device_parity()
     fov_ipm_path()
     connectivity_ipm_path()
     fov_hybrid_path()
     closed_loop()
     print(json.dumps({"kernels": [{
-        "name": "structured_admm", "route": "cuda",
-        "source": "mpc_cbf_torch/csrc/structured_admm.cu",
+        "name": f"structured_admm_{row}", "route": "cuda",
+        "source": SOURCES[row.split("_")[0]],
         "replaces": "mpc_cbf_tpu/ops/qp/pallas_admm.py:35",
-        "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": t_ms}]}))
+        "launches": r["launches"], "max_abs_err": errs[row], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None, "lanes": r["lanes"], "phases": r["phases"]}
+        for row, r in rows.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-// Fused structured-ADMM iteration loop, hand-written for Hopper (sm_90a).
+// Fused structured-ADMM iteration loop, hand-written for Hopper (sm_90a):
+// the entry point and the two kernels that take any shape.
 //
 // Replaces the Pallas TPU kernel mpc_cbf_tpu/ops/qp/pallas_admm.py::_kernel
 // (launched by structured_admm_iterations, pl.pallas_call at :170). One
@@ -15,46 +16,36 @@
 // twin in ops/qp/fused_admm.py does): S and WK t nearly cancel, and float32
 // rounding there costs the fov flagship 3 to 5 points of usable lanes.
 //
-// What bounds it on an H100: per lane and iteration the loop does about
-// 27k multiply-adds (fov flagship: n = 43, m_s = 127, m_d = 84) against
-// about 33 KB of operands (A_d and WK of the lane, the shared A_s and
-// Ms_inv) that every iteration reads again in full. Streamed from device
-// memory that is ~33 KB x 8192 lanes x 264 iterations = 71 GB per control
-// step; the arithmetic alone is far below the card's rate. So the operands
-// must not leave the SM: the bound becomes shared-memory bandwidth (one
-// shared load per multiply-add) and the latency of the chain of dependent
-// matrix-vector products with a barrier between each, not DRAM.
-//
-// Design (first, simple version): one thread block per lane for the whole
-// phase. The block copies [A_s; A_d] (one stacked [m, n] float matrix,
-// m = m_s + m_d), Ms_inv and WK (as double) and the lane's vectors into
-// dynamic shared memory once (fov: ~88 KB, two blocks per SM), runs every
-// iteration out of shared memory, and writes the state back once. Each
-// matrix-vector product gives a thread one output row; row strides are
-// padded to odd counts so that threads on neighbouring rows hit different
-// banks. Products with few outputs and long rows (the three with n
-// outputs) are split into partial sums over several threads per output to
-// shorten the dependent chain. __syncthreads() separates the dependent
-// steps. The batch is the grid, so there is no ragged edge to mask beyond
-// the lane index check. wgmma, TMA and several lanes per block are later
-// work.
+// What bounds the loop on an H100 is its arithmetic, not its bytes: every
+// operand is read from device memory once a launch and then used in each of
+// the 32 to 150 iterations (the count is worked out in
+// structured_admm_tiled.cu). Three kernels, chosen from the shape alone by
+// structured_admm_variant():
+//   tiled     structured_admm_tiled.cu: compiled per shape (fov, connectivity),
+//             several lanes a block, A_d in registers. The main paths run it.
+//   resident  below: one block per lane, every operand of the lane in
+//             dynamic shared memory (fov: ~88 KB, two blocks an SM). The
+//             first version of the port; it stays under 4 % of the bound
+//             (two shared-memory loads per multiply-add, eight block-wide
+//             barriers an iteration around stages of 43 to 211 threads) and
+//             serves the shapes without an instantiation.
+//   streamed  below: for shapes whose operands exceed the 227 KB a block may
+//             have (32-agent fov: n = 67, m_d = 372). A_s, Ms_inv and the
+//             vectors stay in shared memory; the lane's A_d and WK stay in
+//             device memory and are read again every iteration, one warp a
+//             row with coalesced loads, from L2 while the resident blocks'
+//             operands fit it. Slow and right: 2 (n m_d) floats, three
+//             times and once an iteration, set its pace.
 //
 // Built without --use_fast_math: inactive dynamic rows carry rho = 1e-12
 // and the loop divides by rho, so division must be IEEE and denormals kept.
 
-#include <cuda_runtime.h>
+#include "structured_admm.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-// NaN-propagating clip with the semantics of torch.clamp / jnp.clip
-// (max with lo first, then min with hi). fminf/fmaxf would drop a NaN and
-// hide a diverging lane from the isfinite check of the caller.
-__device__ __forceinline__ float clip(float v, float lo, float hi) {
-  v = v < lo ? lo : v;
-  return v > hi ? hi : v;
-}
+constexpr size_t kMaxSharedBytes = 232448;   // 227 KB: what one block may have on sm_90
 
 // sum over c in [c0, c1) of a[c * stride] * v[c]; two accumulators for ILP.
 template <typename T>
@@ -67,6 +58,17 @@ __device__ __forceinline__ T dot_strided(const T* a, int stride, const T* v, int
   }
   if (c < c1) s0 = fma(a[c * stride], v[c], s0);
   return s0 + s1;
+}
+
+// One warp, one row of a float matrix in device memory: the sum over c < C
+// of row[c] v[c] in the type of v, with coalesced loads; every thread of
+// the warp returns the sum.
+template <typename T>
+__device__ __forceinline__ T warp_row_dot(const float* row, const T* v, int C) {
+  T s = 0;
+  for (int c = threadIdx.x % 32; c < C; c += 32) s = fma(static_cast<T>(row[c]), v[c], s);
+  for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
 }
 
 // Number of column ranges a product with R outputs and C columns is split
@@ -117,20 +119,15 @@ struct Layout {
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
-structured_admm_kernel(
-    const float* __restrict__ Ms_inv, const float* __restrict__ A_s,
-    const float* __restrict__ rho_s, const float* __restrict__ q,
-    const float* __restrict__ lbs, const float* __restrict__ ubs,
-    const float* __restrict__ Ad, const float* __restrict__ lbd,
-    const float* __restrict__ ubd, const float* __restrict__ rho_d,
-    const float* __restrict__ WK, const float* __restrict__ x0,
-    const float* __restrict__ zs0, const float* __restrict__ zd0,
-    const float* __restrict__ ys0, const float* __restrict__ yd0,
-    float* __restrict__ x_out, float* __restrict__ zs_out,
-    float* __restrict__ zd_out, float* __restrict__ ys_out,
-    float* __restrict__ yd_out,
-    int B, int n, int m_s, int m_d, int iters, float sigma, float alpha) {
+// The first version: one block per lane, every operand in shared memory.
+__global__ void __launch_bounds__(kThreads) resident_kernel(const AdmmArgs a) {
+  const float *Ms_inv = a.Ms_inv, *A_s = a.A_s, *rho_s = a.rho_s, *q = a.q, *lbs = a.lbs,
+              *ubs = a.ubs, *Ad = a.Ad, *lbd = a.lbd, *ubd = a.ubd, *rho_d = a.rho_d,
+              *WK = a.WK, *x0 = a.x0, *zs0 = a.zs0, *zd0 = a.zd0, *ys0 = a.ys0, *yd0 = a.yd0;
+  float *x_out = a.x_out, *zs_out = a.zs_out, *zd_out = a.zd_out, *ys_out = a.ys_out,
+        *yd_out = a.yd_out;
+  const int B = a.B, n = a.n, m_s = a.m_s, m_d = a.m_d, iters = a.iters;
+  const float sigma = a.sigma, alpha = a.alpha;
   const int lane = blockIdx.x;
   if (lane >= B) return;
   const Layout L(n, m_s, m_d, blockDim.x);
@@ -216,12 +213,8 @@ structured_admm_kernel(
     __syncthreads();
     // over-relaxed z / y updates on every row of [A_s; A_d], relaxed x
     for (int i = tid; i < m; i += nt) {
-      const float zr = alpha * dot_strided(A + i * lda, 1, xt, 0, n) + beta * z[i];
-      const float zn = clip(zr + y[i] / rho[i], lo[i], hi[i]);
-      const float yn = y[i] + rho[i] * (zr - zn);
-      z[i] = zn;
-      y[i] = yn;
-      r[i] = rho[i] * zn - yn;
+      r[i] = row_update(dot_strided(A + i * lda, 1, xt, 0, n), rho[i], lo[i], hi[i],
+                        alpha, beta, z[i], y[i]);
     }
     for (int j = tid; j < n; j += nt) x[j] = alpha * xt[j] + beta * x[j];
     __syncthreads();
@@ -239,13 +232,151 @@ structured_admm_kernel(
   }
 }
 
+// Shared-memory layout of one block of the streamed kernel.
+struct StreamedLayout {
+  int m, lda, scratch;
+  __host__ __device__ StreamedLayout(int n, int m_s, int m_d)
+      : m(m_s + m_d), lda(n | 1), scratch(kThreads > n ? kThreads : n) {}
+  __host__ __device__ size_t doubles(int n, int m_d) const {
+    return static_cast<size_t>(n) * lda + scratch + n + m_d;
+  }
+  __host__ __device__ size_t floats(int n, int m_s) const {
+    return static_cast<size_t>(m_s) * lda + 4 * static_cast<size_t>(n)
+           + 7 * static_cast<size_t>(m) + 2 * scratch;
+  }
+  __host__ __device__ size_t bytes(int n, int m_s, int m_d) const {
+    return doubles(n, m_d) * sizeof(double) + floats(n, m_s) * sizeof(float);
+  }
+};
+
+// One block per lane; A_d and WK of the lane are read from device memory in
+// every iteration (see the note at the top).
+__global__ void __launch_bounds__(kThreads) streamed_kernel(const AdmmArgs a) {
+  const int lane = blockIdx.x;
+  if (lane >= a.B) return;
+  const int n = a.n, m_s = a.m_s, m_d = a.m_d;
+  const StreamedLayout L(n, m_s, m_d);
+  const int m = L.m, lda = L.lda;
+  const int tid = threadIdx.x, nt = blockDim.x, warp = tid / 32, n_warps = nt / 32;
+
+  extern __shared__ double smem[];
+  double* Minv = smem;               // [n, lda]
+  double* part_d = Minv + n * lda;   // [scratch]
+  double* rhs = part_d + L.scratch;  // [n]
+  double* t = rhs + n;               // [m_d]
+  float* As = reinterpret_cast<float*>(t + m_d);   // [m_s, lda]
+  float* qv = As + m_s * lda;        // [n]
+  float* x = qv + n;
+  float* S = x + n;
+  float* xt = S + n;
+  float* rho = xt + n;               // [m] each: shared rows, then the lane's
+  float* lo = rho + m;
+  float* hi = lo + m;
+  float* z = hi + m;
+  float* y = z + m;
+  float* r = y + m;                  // rho z - y
+  float* zA = r + m;                 // [A_s; A_d] xt
+  float* part_s = zA + m;            // [scratch] partial sums of A_s' r_s
+  float* part_l = part_s + L.scratch;  // [scratch] partial sums of A_d' r_d
+
+  const size_t ln = static_cast<size_t>(lane) * n;
+  const size_t ls = static_cast<size_t>(lane) * m_s;
+  const size_t ld = static_cast<size_t>(lane) * m_d;
+  const float* Ad = a.Ad + ld * n;   // [m_d, n] in device memory
+  const float* WK = a.WK + ln * m_d;  // [n, m_d] in device memory
+  for (int i = tid; i < m_s * n; i += nt) As[(i / n) * lda + i % n] = a.A_s[i];
+  for (int i = tid; i < n * n; i += nt) Minv[(i / n) * lda + i % n] = a.Ms_inv[i];
+  for (int i = tid; i < n; i += nt) {
+    qv[i] = a.q[ln + i];
+    x[i] = a.x0[ln + i];
+  }
+  for (int i = tid; i < m; i += nt) {
+    const bool s = i < m_s;
+    const size_t k = s ? ls + i : ld + (i - m_s);
+    rho[i] = s ? a.rho_s[i] : a.rho_d[k];
+    lo[i] = (s ? a.lbs : a.lbd)[k];
+    hi[i] = (s ? a.ubs : a.ubd)[k];
+    z[i] = (s ? a.zs0 : a.zd0)[k];
+    y[i] = (s ? a.ys0 : a.yd0)[k];
+    r[i] = rho[i] * z[i] - y[i];
+  }
+  __syncthreads();
+
+  const float alpha = a.alpha, beta = 1.0f - a.alpha;
+  const int p_s = n_parts(n, m_s), p_l = n_parts(n, m_d), p_ms = n_parts(n, n);
+  for (int it = 0; it < a.iters; ++it) {
+    // RHS = sigma x - q + A_s' r_s + A_d' r_d  (column j of a matrix: stride = row length;
+    // neighbouring threads take neighbouring columns, so the loads of A_d coalesce)
+    partial_matvec(As, 1, lda, n, m_s, r, part_s, p_s);
+    partial_matvec(Ad, 1, n, n, m_d, r + m_s, part_l, p_l);
+    __syncthreads();
+    for (int j = tid; j < n; j += nt)
+      rhs[j] = a.sigma * x[j] - qv[j] + sum_parts(part_s, n, p_s, j) + sum_parts(part_l, n, p_l, j);
+    __syncthreads();
+    // S = Ms_inv RHS, accumulated in double
+    partial_matvec(Minv, lda, 1, n, n, rhs, part_d, p_ms);
+    __syncthreads();
+    for (int j = tid; j < n; j += nt) S[j] = static_cast<float>(sum_parts(part_d, n, p_ms, j));
+    __syncthreads();
+    // t = A_d S
+    for (int d = warp; d < m_d; d += n_warps) {
+      const float s = warp_row_dot(Ad + d * n, S, n);
+      if (tid % 32 == 0) t[d] = s;
+    }
+    __syncthreads();
+    // xt = S - WK t, accumulated in double; x = alpha xt + (1 - alpha) x
+    for (int j = warp; j < n; j += n_warps) {
+      const double c = warp_row_dot(WK + j * m_d, t, m_d);
+      if (tid % 32 == 0) {
+        const float v = static_cast<float>(static_cast<double>(S[j]) - c);
+        xt[j] = v;
+        x[j] = alpha * v + beta * x[j];
+      }
+    }
+    __syncthreads();
+    // [A_s; A_d] xt, then the z, y and r updates of every row
+    for (int i = tid; i < m_s; i += nt) zA[i] = dot_strided(As + i * lda, 1, xt, 0, n);
+    for (int d = warp; d < m_d; d += n_warps) {
+      const float s = warp_row_dot(Ad + d * n, xt, n);
+      if (tid % 32 == 0) zA[m_s + d] = s;
+    }
+    __syncthreads();
+    for (int i = tid; i < m; i += nt)
+      r[i] = row_update(zA[i], rho[i], lo[i], hi[i], alpha, beta, z[i], y[i]);
+    __syncthreads();
+  }
+
+  for (int i = tid; i < n; i += nt) a.x_out[ln + i] = x[i];
+  for (int i = tid; i < m; i += nt) {
+    const bool s = i < m_s;
+    const size_t k = s ? ls + i : ld + (i - m_s);
+    (s ? a.zs_out : a.zd_out)[k] = z[i];
+    (s ? a.ys_out : a.yd_out)[k] = y[i];
+  }
+}
+
+template <typename Kernel>
+int launch_per_lane(Kernel kernel, size_t bytes, const AdmmArgs& a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<a.B, kThreads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launches one rho phase on `stream` of `device`. Every array is float32,
-// C-contiguous and batch-first: q, x0 [B, n]; lbs, ubs, zs0, ys0 [B, m_s];
-// Ad [B, m_d, n]; lbd, ubd, rho_d, zd0, yd0 [B, m_d]; WK [B, n, m_d];
-// shared Ms_inv [n, n], A_s [m_s, n], rho_s [m_s]. The outputs have the
-// shapes of x0, zs0, zd0, ys0, yd0. Returns a cudaError_t (0 = launched).
+// The kernel a shape takes: tiled where there is an instantiation, resident
+// where the lane's operands fit a block's shared memory, else streamed.
+extern "C" int structured_admm_variant(int n, int m_s, int m_d) {
+  if (structured_admm_tiled_has(n, m_s, m_d)) return kTiled;
+  return Layout(n, m_s, m_d, kThreads).bytes(n, m_d) <= kMaxSharedBytes ? kResident : kStreamed;
+}
+
+// Launches one rho phase on `stream` of `device` (arrays as in AdmmArgs).
+// variant < 0: the kernel of structured_admm_variant(); else that kernel,
+// for measurements. Returns a cudaError_t (0 = launched). The calling
+// thread's current device is left as it was found.
 extern "C" int structured_admm_launch(
     const float* Ms_inv, const float* A_s, const float* rho_s, const float* q,
     const float* lbs, const float* ubs, const float* Ad, const float* lbd,
@@ -253,21 +384,30 @@ extern "C" int structured_admm_launch(
     const float* zs0, const float* zd0, const float* ys0, const float* yd0,
     float* x_out, float* zs_out, float* zd_out, float* ys_out, float* yd_out,
     int B, int n, int m_s, int m_d, int iters, float sigma, float alpha,
-    int device, void* stream) {
+    int device, void* stream, int variant) {
   if (B <= 0 || n <= 0 || m_s < 0 || m_d <= 0 || iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  const AdmmArgs a{Ms_inv, A_s, rho_s, q, lbs, ubs, Ad, lbd, ubd, rho_d, WK, x0, zs0, zd0,
+                   ys0, yd0, x_out, zs_out, zd_out, ys_out, yd_out, B, n, m_s, m_d, iters,
+                   sigma, alpha};
+  int previous = device;
+  cudaError_t err = cudaGetDevice(&previous);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t bytes = Layout(n, m_s, m_d, kThreads).bytes(n, m_d);
-  err = cudaFuncSetAttribute(structured_admm_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  structured_admm_kernel<<<B, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      Ms_inv, A_s, rho_s, q, lbs, ubs, Ad, lbd, ubd, rho_d, WK, x0, zs0, zd0,
-      ys0, yd0, x_out, zs_out, zd_out, ys_out, yd_out, B, n, m_s, m_d, iters,
-      sigma, alpha);
-  return static_cast<int>(cudaGetLastError());
+  if (previous != device && (err = cudaSetDevice(device)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (variant < 0) variant = structured_admm_variant(n, m_s, m_d);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (variant == kTiled)
+    rc = structured_admm_tiled_launch(a, s);
+  else if (variant == kResident)
+    rc = launch_per_lane(resident_kernel, Layout(n, m_s, m_d, kThreads).bytes(n, m_d), a, s);
+  else if (variant == kStreamed)
+    rc = launch_per_lane(streamed_kernel, StreamedLayout(n, m_s, m_d).bytes(n, m_s, m_d), a, s);
+  else
+    rc = static_cast<int>(cudaErrorInvalidValue);
+  if (previous != device) cudaSetDevice(previous);
+  return rc;
 }
 
 extern "C" const char* structured_admm_error_string(int code) {

@@ -3,8 +3,12 @@ plain PyTorch twin (counterpart of ``mpc_cbf_tpu/ops/qp/pallas_admm.py``).
 
 ``structured_admm_iterations`` runs one rho phase of the fixed-count loop
 of ``StructuredQPOperator._solve`` for a whole batch of lanes. On CUDA
-float32 tensors it launches ``csrc/structured_admm.cu`` (built at first
-use by ``mpc_cbf_torch._build``); on CPU tensors it runs the twin
+float32 tensors it launches one of the kernels of ``csrc/`` (built at first
+use by ``mpc_cbf_torch._build``), chosen from the shape alone (``VARIANTS``):
+``tiled`` for the shapes compiled in ``csrc/structured_admm_tiled.cu`` (the
+fov and connectivity control steps), ``resident`` where a lane's operands
+fit one block's shared memory, ``streamed`` for anything larger (the
+32-agent fov team). On CPU tensors it runs the twin
 ``structured_admm_iterations_ref``, which is the scan body of
 ``mpc_cbf_tpu/ops/qp/structured.py:442-463`` as a Python loop. Any other
 CUDA input raises: there is no silent fallback.
@@ -30,6 +34,8 @@ import torch
 from mpc_cbf_torch import _build
 
 Tensor = torch.Tensor
+#: kernel variants, indexed by the code ``structured_admm_variant`` returns
+VARIANTS = ("tiled", "resident", "streamed")
 State5 = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]
 
 
@@ -71,31 +77,60 @@ def structured_admm_iterations_ref(
     return x, zs, zd, ys, yd
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load()
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a kernel library (csrc/structured_admm.cu)."""
     ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.structured_admm_launch.argtypes = (
-        [ptr] * 21 + [c_int] * 5 + [c_float, c_float, c_int, ptr])
+        [ptr] * 21 + [c_int] * 5 + [c_float, c_float, c_int, ptr, c_int])
     lib.structured_admm_launch.restype = c_int
+    lib.structured_admm_variant.argtypes = [c_int] * 3
+    lib.structured_admm_variant.restype = c_int
     lib.structured_admm_error_string.argtypes = [c_int]
     lib.structured_admm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return bind(_build.load())
+
+
+def launch_variant(lib: ctypes.CDLL, variant: str, args, *, iters: int, sigma: float,
+                   alpha: float) -> State5:
+    """Launch the kernel ``variant`` (a name from ``VARIANTS``) of ``lib`` on
+    ``args`` (the sixteen tensors of ``structured_admm_iterations``: CUDA,
+    float32, contiguous, of matching shapes; not checked here) and return
+    the new state. It counts nothing. The package calls it from
+    ``structured_admm_iterations`` alone, with the kernel of the shape;
+    tests and measurements call it to hold one kernel against another on
+    a shape that would take a different one."""
+    qb, A_sb, Ad = args[3], args[1], args[6]
+    (B, n), m_s, m_d = qb.shape, A_sb.shape[0], Ad.shape[1]
+    outs = tuple(torch.empty((B, k), dtype=torch.float32, device=qb.device)
+                 for k in (n, m_s, m_d, m_s, m_d))
+    err = lib.structured_admm_launch(
+        *(a.data_ptr() for a in args), *(o.data_ptr() for o in outs),
+        B, n, m_s, m_d, int(iters), float(sigma), float(alpha),
+        qb.device.index, torch.cuda.current_stream(qb.device).cuda_stream,
+        VARIANTS.index(variant))
+    if err != 0:
+        raise RuntimeError(f"structured_admm kernel ({variant}) launch failed: "
+                           + lib.structured_admm_error_string(err).decode())
+    return outs
 
 
 def structured_admm_iterations(
     Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, WK,
     x0, zs0, zd0, ys0, yd0, *, iters: int, sigma: float, alpha: float,
 ) -> State5:
-    """Run one rho phase of the loop: the CUDA kernel for CUDA float32
-    tensors, the plain twin for CPU tensors. Shapes in the module
+    """Run one rho phase of the loop: the CUDA kernel of the shape for CUDA
+    float32 tensors, the plain twin for CPU tensors. Shapes in the module
     docstring. ``structured_admm_iterations.launches`` counts kernel
-    launches."""
+    launches and ``.launches_by_variant`` counts them per kernel."""
     args = (Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, WK,
             x0, zs0, zd0, ys0, yd0)
-    kw = dict(iters=iters, sigma=sigma, alpha=alpha)
     if qb.device.type == "cpu":
-        return structured_admm_iterations_ref(*args, **kw)
+        return structured_admm_iterations_ref(*args, iters=iters, sigma=sigma, alpha=alpha)
     if qb.device.type != "cuda":
         raise ValueError(f"structured_admm_iterations: no kernel for {qb.device}")
 
@@ -116,24 +151,19 @@ def structured_admm_iterations(
                              f"{tuple(a.shape)}, expected {shape}")
         if not a.is_contiguous():
             raise ValueError(f"structured_admm_iterations: {name} is not contiguous")
-    outs = tuple(torch.empty((B, k), dtype=torch.float32, device=qb.device)
-                 for k in (n, m_s, m_d, m_s, m_d))
     if B == 0:
-        return outs
+        return tuple(torch.empty((0, k), dtype=torch.float32, device=qb.device)
+                     for k in (n, m_s, m_d, m_s, m_d))
     lib = _lib()
-    stream = torch.cuda.current_stream(qb.device)
-    err = lib.structured_admm_launch(
-        *(a.data_ptr() for a in args), *(o.data_ptr() for o in outs),
-        B, n, m_s, m_d, int(iters), float(sigma), float(alpha),
-        qb.device.index, stream.cuda_stream)
-    if err != 0:
-        raise RuntimeError("structured_admm kernel launch failed: "
-                           + lib.structured_admm_error_string(err).decode())
+    variant = VARIANTS[lib.structured_admm_variant(n, m_s, m_d)]
+    outs = launch_variant(lib, variant, args, iters=iters, sigma=sigma, alpha=alpha)
     structured_admm_iterations.launches += 1
+    structured_admm_iterations.launches_by_variant[variant] += 1
     return outs
 
 
 structured_admm_iterations.launches = 0
+structured_admm_iterations.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def random_phase_inputs(rng: np.random.Generator, B: int, n: int, m_s: int, m_d: int,

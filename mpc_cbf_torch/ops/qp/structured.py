@@ -22,8 +22,7 @@ Left out on purpose (TPU-only in the JAX package):
   LU; the batched ``torch.linalg.inv_ex`` here has no such limit;
 - ``pallas_block`` / ``pallas_interpret`` and the backend, x64 and VMEM
   gate of ``_solve``: replaced by one field, ``use_kernel``.
-Not ported yet: ``lane_chunk`` (the JAX package turns it on only from
-m_d = 128) and ``solve_polished``.
+Not ported yet: ``solve_polished``.
 """
 
 from __future__ import annotations
@@ -68,6 +67,15 @@ class StructuredConfig:
     # CPU tensors; False = the plain loop on any device (the kernel's
     # reference); True = as None
     use_kernel: Optional[bool] = None
+    # lanes per chunk for the WHOLE solve (a Python loop over lane slices,
+    # the last one may be shorter). The Woodbury precompute holds four
+    # per-lane [m_d, m_d] tensors (AMA, Cp, Cp_inv, K) on the device; at
+    # swarm scale they dominate: a 32-agent fov batch of 32768 lanes with
+    # m_d = 372 is 4 x 18.1 GB. None = auto: off below m_d = 128, else the
+    # largest power of two that keeps those tensors within 8 GB, a budget
+    # chosen for an 80 GB card (the JAX package's 2.5 GB was sized for a
+    # 16 GB TPU). 0 = off; k = k lanes.
+    lane_chunk: Optional[int] = None
     # the f64 active-set polish is not ported; True is refused by
     # StructuredIMPC
     polish: bool = False
@@ -180,7 +188,31 @@ class StructuredQPOperator:
         if q.dtype != self.dtype or q.device != self.device:
             raise ValueError(f"operator holds {self.dtype} on {self.device}, "
                              f"got q as {q.dtype} on {q.device}")
-        return self._solve(q, lb_s, ub_s, A_d, lb_d, ub_d, x0, ys0, yd0)
+        chunk = self._lane_chunk(q.shape[0], q.element_size())
+        if not chunk:
+            return self._solve(q, lb_s, ub_s, A_d, lb_d, ub_d, x0, ys0, yd0)
+        # lanes are independent, so the chunked solve equals the whole one
+        split = lambda a: [None] * -(-q.shape[0] // chunk) if a is None \
+            else torch.split(a, chunk)
+        parts = [self._solve(*args) for args in zip(*map(
+            split, (q, lb_s, ub_s, A_d, lb_d, ub_d, x0, ys0, yd0)))]
+        return StructuredSolution(*(torch.cat(f) for f in zip(*parts)))
+
+    #: device bytes the auto lane_chunk allows the per-lane [m_d, m_d]
+    #: tensors of ``woodbury`` (a tenth of an 80 GB card)
+    LANE_CHUNK_BUDGET = 8_000_000_000
+
+    def _lane_chunk(self, B: int, itemsize: int = 4) -> int:
+        """Resolved lanes per chunk (0 = no chunking); see
+        StructuredConfig.lane_chunk. itemsize: bytes per element of the
+        solve's dtype (float64 halves the lane count)."""
+        c = self.cfg.lane_chunk
+        if c is None:
+            if self.m_d < 128:
+                return 0
+            per_lane = 4 * itemsize * self.m_d * self.m_d
+            c = 1 << int(np.floor(np.log2(max(self.LANE_CHUNK_BUDGET // per_lane, 256))))
+        return 0 if c <= 0 or B <= c else c
 
     def scale(self, q: Tensor, lb_s: Tensor, ub_s: Tensor,
               A_d: Tensor, lb_d: Tensor, ub_d: Tensor):

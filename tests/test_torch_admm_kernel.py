@@ -4,9 +4,11 @@ and — on a machine with an NVIDIA GPU — the CUDA kernel against the twin.
 
 The twin is held against mpc_cbf_tpu.ops.qp.pallas_admm's kernel run in
 interpret mode (as tests/test_pallas_admm.py runs it on the CPU), at the
-fov flagship shapes (n = 43, m_s = 127, m_d = 84) for 40 iterations, to
-rtol = atol = 2e-4: the bar of tests/test_pallas_admm.py:53-55 between
-two float32 loops that sum in another order.
+fov flagship shapes (n = 43, m_s = 127, m_d = 84), the connectivity shapes
+(36, 126, 6) and the 32-agent connectivity shapes (36, 126, 62) for 40
+iterations, to rtol = atol = 2e-4: the bar of tests/test_pallas_admm.py:53-55
+between two float32 loops that sum in another order. On the card every
+kernel variant (tiled, resident, streamed) is held to the same bar.
 
 The cases marked ``cuda`` import no JAX, so that they also run where the
 GPU is and JAX is not (tests/conftest.py imports JAX, hence --noconftest):
@@ -19,28 +21,29 @@ import pytest
 import torch
 
 from mpc_cbf_torch import _build
+from mpc_cbf_torch.ops.qp import fused_admm
 from mpc_cbf_torch.controllers import StructuredIMPC
 from mpc_cbf_torch.ops.qp.fused_admm import (
-    random_phase_inputs, structured_admm_iterations, structured_admm_iterations_ref)
+    VARIANTS, random_phase_inputs, structured_admm_iterations, structured_admm_iterations_ref)
 from mpc_cbf_torch.ops.qp.structured import StructuredConfig
 from mpc_cbf_torch.types import State
 
 import torch_parity_cases as cases
 
-N, M_S, M_D = 43, 127, 84
+FOV, CONN, SWARM_CONN, SWARM_FOV = (43, 127, 84), (36, 126, 6), (36, 126, 62), (67, 151, 372)
 KW = dict(iters=40, sigma=1e-6, alpha=1.6)
 
 
-def _inputs(B, seed):
-    return random_phase_inputs(np.random.default_rng(seed), B, N, M_S, M_D)
+def _inputs(B, seed, shape=FOV):
+    return random_phase_inputs(np.random.default_rng(seed), B, *shape)
 
 
-@pytest.mark.parametrize("B", [5, 3])
-def test_twin_matches_pallas_kernel(B):
+@pytest.mark.parametrize("B,shape", [(5, FOV), (3, FOV), (4, CONN), (3, SWARM_CONN)])
+def test_twin_matches_pallas_kernel(B, shape):
     import jax.numpy as jnp
     from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
 
-    arrays = _inputs(B, seed=B)
+    arrays = _inputs(B, seed=B, shape=shape)
     out_t = structured_admm_iterations_ref(*map(torch.from_numpy, arrays), **KW)
     out_j = pallas(*map(jnp.asarray, arrays), **KW, block=128, interpret=True)
     for name, t, j in zip(("x", "zs", "zd", "ys", "yd"), out_t, out_j):
@@ -57,6 +60,7 @@ def test_wrapper_runs_twin_on_cpu_without_launching():
     assert structured_admm_iterations.launches == before
     for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert set(structured_admm_iterations.launches_by_variant) == set(VARIANTS)
 
 
 def test_wrapper_has_no_fallback_off_cpu():
@@ -74,7 +78,9 @@ def test_build_flags():
     assert "fast_math" not in flags and "ftz" not in flags
     assert _build.build_dir().parent == _build.BUILD_ROOT
     assert _build.BUILD_ROOT.parts[-2:] == ("build", "kernels")
-    assert [p.name for p in _build.SOURCES] == ["structured_admm.cu"]
+    assert "-shared" not in _build.NVCC_FLAGS     # sources compile apart, one link at the end
+    assert [p.name for p in _build.SOURCES] == ["structured_admm.cu", "structured_admm_tiled.cu"]
+    assert [p.name for p in _build.HEADERS] == ["structured_admm.cuh"]
 
 
 def _need_gpu():
@@ -83,19 +89,62 @@ def _need_gpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1000, 3])
-def test_kernel_matches_twin_on_gpu(B):
-    """The CUDA kernel against the twin on the card, fov shapes, a ragged
-    batch; same bar as the twin against the Pallas kernel."""
+@pytest.mark.parametrize("shape,B,took", [
+    (FOV, 1001, "tiled"),            # a ragged last block
+    (FOV, 3, "tiled"),               # fewer lanes than a block holds
+    (CONN, 1001, "tiled"),
+    (CONN, 3, "tiled"),
+    (SWARM_CONN, 64, "resident"),    # no instantiation: operands in shared memory
+    (SWARM_FOV, 16, "streamed"),     # beyond a block's shared memory: A_d, WK from device memory
+])
+def test_kernel_matches_twin_on_gpu(shape, B, took):
+    """The kernel each shape takes against the twin on the card; same bar as
+    the twin against the Pallas kernel. The shape alone picks the variant."""
     _need_gpu()
-    arrays = [torch.from_numpy(a).cuda() for a in _inputs(B, seed=21)]
-    before = structured_admm_iterations.launches
+    arrays = [torch.from_numpy(a).cuda() for a in _inputs(B, seed=21, shape=shape)]
+    before = dict(structured_admm_iterations.launches_by_variant)
+    total = structured_admm_iterations.launches
     out_k = structured_admm_iterations(*arrays, **KW)
     out_t = structured_admm_iterations_ref(*arrays, **KW)
     torch.cuda.synchronize()
-    assert structured_admm_iterations.launches == before + 1
+    assert structured_admm_iterations.launches == total + 1
+    after = structured_admm_iterations.launches_by_variant
+    assert {v: after[v] - before[v] for v in VARIANTS} == {v: int(v == took) for v in VARIANTS}
     for a, b in zip(out_k, out_t):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["resident", "streamed"])
+def test_generic_kernels_take_the_fov_shapes_on_gpu(variant):
+    """The two kernels that take any shape, launched by name at the fov
+    shapes (which the wrapper gives to the tiled kernel), against the twin."""
+    _need_gpu()
+    arrays = [torch.from_numpy(a).cuda() for a in _inputs(100, seed=21)]
+    before = structured_admm_iterations.launches
+    out_k = fused_admm.launch_variant(fused_admm._lib(), variant, arrays, **KW)
+    out_t = structured_admm_iterations_ref(*arrays, **KW)
+    torch.cuda.synchronize()
+    assert structured_admm_iterations.launches == before     # only the wrapper counts
+    for a, b in zip(out_k, out_t):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [FOV, CONN])
+def test_nan_lane_leaves_its_block_untouched_on_gpu(shape):
+    """The tiled kernel runs several lanes in one block; a lane that goes
+    NaN changes no bit of any other lane."""
+    _need_gpu()
+    arrays = [torch.from_numpy(a).cuda() for a in _inputs(13, seed=23, shape=shape)]
+    clean = structured_admm_iterations(*arrays, **KW)
+    arrays[3] = arrays[3].clone()
+    arrays[3][5] = float("nan")
+    dirty = structured_admm_iterations(*arrays, **KW)
+    keep = torch.arange(13, device="cuda") != 5
+    assert bool(torch.isnan(dirty[0][5]).all())
+    for c, d in zip(clean, dirty):
+        assert torch.equal(c[keep], d[keep])
 
 
 @pytest.mark.cuda
