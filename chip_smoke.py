@@ -41,47 +41,94 @@ sm_90a: an H100). It
 8. holds the f64 IPM on the card against the same solve on the host CPU
    (512 fov lanes: converged flags, z to 1e-3);
 9. drives the f32 Mehrotra IPM (IPM_F32_ENTRY, bench.py's default solver)
-   on the fov recipe at 8192 lanes: 5 timed calls after a warm-up, the
+   on the fov recipe at 8192 lanes: 3 timed calls after a warm-up, the
    usable rate (bar 0.98), peak device memory, one call with a sync around
    each stage, one call under torch.profiler (kernel launches per call,
-   device share of cholesky_ex + cholesky_solve) and one call at chunk = 0;
+   device share of cholesky_ex + the triangular solves) and one call at
+   chunk = 0;
 10. the f32 IPM on connectivity at 32768 lanes (usable bar 0.99), one timed
     call;
 11. HYBRID_PROD (f32 entry + 12-iteration f64 tail) on the fov recipe at
     8192 lanes: certified lanes must be usable lanes, certified rate >= 0.95;
 12. a closed loop: MultiAgentSim(structured=True) with IPM_F32_ENTRY, 8 fov
     robots x 1024 scenarios (random_instance seeds 0..1023) = 8192 lanes a
-    step, 20 steps (2 s); every trajectory must be finite, and the mean
+    step, 10 steps (1 s); every trajectory must be finite, and the mean
     per-step solver success and the instance_success share are reported.
+13. the 4-robot connectivity step with the λ₂/CLF rows
+    (ConnectivityIMPCCBF(enable_connectivity=True), shapes (36, 126, 14))
+    through StructuredIMPC at 32768 lanes: it must launch the tiled kernel
+    4 times a call (the shape has an instantiation of its own); the kernel
+    is held against the twin at that shape and timed alone at those lanes,
+    beside the resident kernel;
+14. the dense ADMM (ops/qp/admm.py, ADMMConfig(iters=200) as run_sim builds
+    it) against the same solver in float64 on the card: the fov flagship's
+    QPs (n = 43, m = 211) at 8192 lanes and the cbf-fov QPs (n = 10, m = 44)
+    at 32768 lanes: converged share, time, launches per solve; then the dense
+    IMPC step FovIMPCCBF.optimize at 8192 lanes (usable share);
+15. the batched float32 eigh of 4096 8-robot Laplacians against a float64
+    eigh on the host;
+16. closed loops at the width of a sweep (circle_rotate_instance(8, 4.0)
+    with 0.05 m start noise, apps/sweep.py:60-70), built by run_sim.build_sim
+    from configs/base_config.json: CBFOnlySim cbf-fov (slack on) 8 x 4096
+    for 60 steps, with one step under torch.profiler, the same with the
+    particle filter (229376 filters of 256 particles), CBFOnlySim
+    cbf-connectivity 8 x 4096 for 60 steps, BezierMPCSim 8 x 1024 for 20
+    steps, MultiAgentSim(structured=False) 8 x 256 for 5 steps: finite
+    trajectories, ms per step, solver success, instance_success share,
+    minimum pairwise distance, peak device memory;
+17. the command line: mpc_cbf_torch.apps.run_sim.main on
+    configs/baseline/3r/rotate.json for 8 s of flight with each of the six
+    controllers, connectivity --enable-connectivity and cbf-fov --pf
+    (--device defaults to cuda): success and solver_success_rate >= 0.95 as
+    the JAX package's runner gives on a CPU, ms per replan step of one team
+    against the 100 ms budget.
 Any failure raises (exit code 1). The last two lines are a JSON record of
 the kernels and {"ok": true, "device": {...}}. Without a GPU, or without
 the repository beside it, it exits non-zero and prints no result.
-Cut against earlier versions to stay within the same time: the closed loop
-flies 20 steps, not 60, and the connectivity IPM times one call, not three.
+Cut against earlier versions to stay within the time: the f32-IPM closed
+loop flies 10 steps (60 at first, then 20), the fov IPM times 3 calls, not
+5, and its chunk = 0 run, the connectivity IPM and HYBRID_PROD time one
+call each, not three.
 
 Expected on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md; the wall times
-follow the host): every kernel variant within 3.1e-5 of its twin; one fov
+follow the host): every kernel variant within 3.4e-5 of its twin; one fov
 control step's four phases at 8192 lanes 16.1 ms in the tiled kernel
 (bound 1.40 ms, 8.7 % of it reached; first version 39.2-39.7 ms, twin
-144-272 ms); connectivity at 32768 lanes 19.4 ms (bound 2.51 ms, 12.9 %;
-first version 84.8 ms); the resident kernel 10.2 ms for the 32-agent
-connectivity step's four launches (bound 0.39 ms), the streamed kernel
-596 ms for one 2048-lane chunk of the 32-agent fov step (bound 4.65 ms;
-its twin 587-601 ms); fov ADMM usable 0.7097 (plain route 0.7095), 150-415
-ms per call; connectivity ADMM usable 0.9933, 27-31 ms; 32-agent
-connectivity usable 1.0000, 35-70 ms; 32-agent fov usable 0.9888, 1.8-2.4
-s, peak 6.35 GiB; the f64 IPM on the card within 2.5e-4 of the host CPU;
-fov f32 IPM usable 0.9974, 500-1400 ms per call at chunk 2048 and 220-430
-ms at chunk 0, ~46k kernel launches per call; connectivity f32 IPM usable
-1.0000, 2.5-4.2 s; HYBRID_PROD certified 0.9873, 0.74-1.53 s; closed loop
-0.6-1.3 s per step, solver success 0.99, instance_success 0.0 (the JAX
-package flies these random instances to the same places). About 110-200 s
-in all.
+144-272 ms); connectivity at 32768 lanes 19.6 ms (bound 2.51 ms, 12.8 %;
+first version 84.6-85.1 ms); the 4-robot step with the λ₂/CLF rows at
+32768 lanes 20.8 ms (bound 2.73 ms, 13.2 %; first version 89.0 ms, twin
+181-207 ms); the resident kernel 10.2 ms for the 32-agent connectivity
+step's four launches (bound 0.39 ms), the streamed kernel 593-597 ms for
+one 2048-lane chunk of the 32-agent fov step (bound 4.65 ms; its twin
+532-604 ms); fov ADMM usable 0.7097 (plain route 0.7095), 150-415 ms per
+call; connectivity ADMM usable 0.9933, 26-31 ms; 32-agent connectivity
+usable 1.0000, 35-70 ms; 32-agent fov usable 0.9888, 1.8-2.4 s, peak 6.35
+GiB; λ₂ connectivity usable 0.5292 on bench.py's random teams (0.98 where
+the λ₂ row is on, 0.29 under the hard CLF rows; the JAX package gives the
+same flags), 47-55 ms a call; the f64 IPM on the card within 2.5e-4 of the
+host CPU; fov f32 IPM usable 0.9974, 500-1400 ms per call at chunk 2048
+and 220-430 ms at chunk 0, ~46k kernel launches per call; connectivity f32
+IPM usable 1.0000, 1.9-4.2 s; HYBRID_PROD certified 0.987-0.989, 0.74-1.53
+s; closed loop 0.6-1.3 s per step, solver success 0.99, instance_success
+0.0 (the JAX package flies these random instances to the same places); the
+dense ADMM ~10 250 launches a solve, 240-245 ms on the fov flagship QPs
+(converged 0.17, primal residual <= 0.05: 0.47) and 116-220 ms on the
+cbf-fov QPs (converged 0.42); the dense IMPC step usable 0.726, 0.54-0.62
+s; CBF-only steps at 32768 lanes 133-256 ms (223-336 with the particle
+filter, peak 4.24 GiB), solver success 0.06 (cbf-fov) and 0.62
+(cbf-connectivity) on the 8-robot rings, as in the JAX package;
+BezierMPCSim 179-227 ms a step, all scenarios succeed; the command line
+flies all eight variants to success on 3r/rotate, 11-52 ms per replan step
+through the structured ADMM, 119-363 ms through the dense ADMM and the f32
+IPM (over the 100 ms budget). 4 to 7 minutes in all; every phase logs its
+wall seconds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import statistics
 import subprocess
@@ -96,12 +143,15 @@ from mpc_cbf_torch.types import State
 from mpc_cbf_torch.ops.cbf import ConnectivityCBF, FovCBF
 from mpc_cbf_torch.ops.qp import fused_admm
 from mpc_cbf_torch.ops.qp.ipm import HYBRID_PROD, IPM_F32_ENTRY, IPMConfig, StructuredIPM
+from mpc_cbf_torch.ops.qp.admm import ADMMConfig, solve_batch
 from mpc_cbf_torch.ops.qp.structured import StructuredConfig
+from mpc_cbf_torch.apps import run_sim
 from mpc_cbf_torch.controllers import (
     BezierParams, MPCParams, BezierMPCOperator, IMPCParams,
     ConnectivityIMPCCBF, FovIMPCCBF, StructuredIMPC)
 from mpc_cbf_torch.parallel import MultiAgentSim
-from mpc_cbf_torch.utils.instances import random_instance
+from mpc_cbf_torch.utils import config as cfgmod
+from mpc_cbf_torch.utils.instances import circle_rotate_instance, random_instance
 from mpc_cbf_torch.utils.metrics import instance_success
 
 DEV = torch.device("cuda")
@@ -109,6 +159,9 @@ F32 = torch.float32
 FOV_SHAPES = dict(n=43, m_s=127, m_d=84)      # fov flagship: 36 + 7 slack columns
 CONN_SHAPES = dict(n=36, m_s=126, m_d=6)      # 4-robot connectivity
 SWARM_CONN_SHAPES = dict(n=36, m_s=126, m_d=62)   # 32-agent connectivity
+LAMBDA2_SHAPES = dict(n=36, m_s=126, m_d=14)      # 4-robot connectivity with the λ₂/CLF rows
+BASE_CONFIG = "configs/base_config.json"
+TASK_3R = "configs/baseline/3r/rotate.json"
 PHASES = (150, 50, 32, 32)                   # cold soft/stiff, warm soft/stiff
 RTOL = ATOL = 2e-4                           # tests/test_pallas_admm.py:53-55
 KERNEL = fused_admm.structured_admm_iterations
@@ -148,6 +201,14 @@ def bound(B: int, n: int, m_s: int, m_d: int, phases) -> tuple:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(name: str, fn, *args, **kwargs):
+    """Run one phase of the script and log the wall seconds it took."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(f"  [{name}: {time.perf_counter() - t0:.1f} s]")
+    return out
 
 
 def sync_clock() -> float:
@@ -216,6 +277,9 @@ def check_kernel(swarm_fov_shapes, iters: int = 40) -> dict:
         ("tiled_connectivity", "connectivity, fewer lanes than a block", CONN_SHAPES, 3, None),
         ("resident", "32-agent connectivity", SWARM_CONN_SHAPES, 64, None),
         ("resident", "fov through the first version", FOV_SHAPES, 100, "resident"),
+        ("tiled_lambda2", "connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES, 1001, None),
+        ("tiled_lambda2", "connectivity with the λ₂/CLF rows, fewer lanes than a block",
+         LAMBDA2_SHAPES, 3, None),
         ("streamed", "32-agent fov", SWARM_FOV_SHAPES, 64, None),
         ("streamed", "fov through the streamed kernel", FOV_SHAPES, 100, "streamed"),
     ]
@@ -239,7 +303,8 @@ def check_kernel(swarm_fov_shapes, iters: int = 40) -> dict:
             f"({took[0]}): max |dev| {err:.3e} (rtol = atol = {RTOL})")
 
     # a NaN lane leaves every other lane, those of its block too, bitwise untouched
-    for what, shapes, bad_lane in (("fov", FOV_SHAPES, 5), ("connectivity", CONN_SHAPES, 10)):
+    for what, shapes, bad_lane in (("fov", FOV_SHAPES, 5), ("connectivity", CONN_SHAPES, 10),
+                                   ("connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES, 10)):
         args = phase_inputs(37, seed=2, shapes=shapes)
         clean = KERNEL(*args, iters=iters, **KW)
         args[3] = args[3].clone()
@@ -339,8 +404,9 @@ def controller_shapes(ctrl) -> dict:
     return dict(n=ctrl.n, m_s=ctrl.static_parts()[1].shape[0], m_d=ctrl.m_dynamic)
 
 
-def bench_problem(mode: str, batch: int):
-    """bench.py's recipe (bench.py:73-108,143-147), numpy seed 0, on the card."""
+def bench_problem(mode: str, batch: int, enable_connectivity: bool = False):
+    """bench.py's recipe (bench.py:73-108,143-147), numpy seed 0, on the card;
+    enable_connectivity adds the λ₂/CLF rows to the connectivity controller."""
     mpc = MPCParams()
     rng = np.random.default_rng(0)
     if mode == "fov":
@@ -355,7 +421,7 @@ def bench_problem(mode: str, batch: int):
         N = 3
         op = BezierMPCOperator(BezierParams(), mpc, dim=3, device=DEV, dtype=F32)
         ctrl = ConnectivityIMPCCBF(op, ConnectivityCBF(1.0, 4.0, mpc.v_min, mpc.v_max),
-                                   IMPCParams(), N)
+                                   IMPCParams(), N, enable_connectivity=enable_connectivity)
         ang = rng.uniform(0, 2 * np.pi, (batch, N))
         rad = rng.uniform(2.5, 4.0, (batch, N))
         nbr_pos = np.stack([rad * np.cos(ang), rad * np.sin(ang), np.zeros_like(rad)], -1)
@@ -561,9 +627,9 @@ def _device_us(evt, total: bool) -> float:
     return 0.0
 
 
-def profile_call(step) -> int:
-    """One call under torch.profiler: kernel launches, device busy time and
-    the share of cholesky_ex + cholesky_solve. Returns the launch count."""
+def profiled(step):
+    """One call under torch.profiler: (key averages, its device kernels,
+    wall seconds)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -572,17 +638,32 @@ def profile_call(step) -> int:
         step()
         wall = sync_clock() - t0
     avgs = prof.key_averages()
-    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    return avgs, [e for e in avgs if e.device_type == DeviceType.CUDA], wall
+
+
+def profile_counts(step) -> tuple:
+    """(kernel launches, device busy ms, wall ms) of one call under
+    torch.profiler."""
+    _, kernels, wall = profiled(step)
+    return (sum(e.count for e in kernels),
+            sum(_device_us(e, total=False) for e in kernels) / 1e3, wall * 1e3)
+
+
+def profile_call(step) -> int:
+    """One call under torch.profiler: kernel launches, device busy time and
+    the share of the factorization (cholesky_ex and the two triangular solves
+    of ipm.chol_solve). Returns the launch count."""
+    avgs, kernels, wall = profiled(step)
     launches = sum(e.count for e in kernels)
     busy = sum(_device_us(e, total=False) for e in kernels)
     chol = sum(_device_us(e, total=True) for e in avgs
-               if e.key in ("aten::linalg_cholesky_ex", "aten::cholesky_solve"))
+               if e.key in ("aten::linalg_cholesky_ex", "aten::linalg_solve_triangular"))
     if busy <= 0:
         log(f"  profiled call ({wall * 1e3:.2f} ms wall): {launches} kernel launches; "
             "device time not measured (the profiler saw none)")
         return launches
     log(f"  profiled call ({wall * 1e3:.2f} ms wall under the profiler): {launches} kernel "
-        f"launches, device busy {busy / 1e3:.2f} ms; cholesky_ex + cholesky_solve "
+        f"launches, device busy {busy / 1e3:.2f} ms; cholesky_ex + solve_triangular "
         f"{chol / 1e3:.2f} ms = {100 * chol / busy:.1f} % of device time")
     for e in sorted(kernels, key=lambda e: -_device_us(e, total=False))[:8]:
         log(f"    {_device_us(e, total=False) / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
@@ -626,7 +707,7 @@ def fov_ipm_path(batch: int = 8192) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    res, times = timed_calls(step, 5)
+    res, times = timed_calls(step, 3)
     if KERNEL.launches:
         raise AssertionError("the IPM control step launched the ADMM kernel")
     usable = check_result(res, batch)
@@ -642,7 +723,7 @@ def fov_ipm_path(batch: int = 8192) -> None:
     whole = StructuredIMPC(ctrl, dataclasses.replace(IPM_F32_ENTRY, chunk=0))
     step0 = lambda: whole.optimize_batch(*inputs)
     step0()
-    res0, times0 = timed_calls(step0, 3)
+    res0, times0 = timed_calls(step0, 1)
     usable0 = check_result(res0, batch)
     log(f"  chunk = 0 (one chunk of {batch}): usable {usable0:.4f}, {spread(times0)}; "
         f"chunk = {IPM_F32_ENTRY.chunk}: {t * 1e3:.2f} ms; success flags differ on "
@@ -670,7 +751,7 @@ def fov_hybrid_path(batch: int = 8192) -> None:
     step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    res, times = timed_calls(step, 3)
+    res, times = timed_calls(step, 1)
     usable = check_result(res, batch)
     cert = float(res.certified.float().mean())
     log(f"fov HYBRID_PROD, {batch} lanes: usable {usable:.4f}, certified {cert:.4f}, "
@@ -683,7 +764,21 @@ def fov_hybrid_path(batch: int = 8192) -> None:
     stage_split(simpc, inputs)
 
 
-def closed_loop(robots: int = 8, scenarios: int = 1024, steps: int = 20) -> None:
+def stamp_steps(sim) -> list:
+    """Make sim.control_step note the synchronised host time it is entered
+    at; returns the list the times go to (the sims are frozen dataclasses,
+    so the method is shadowed on the object)."""
+    stamps = []
+    control_step = sim.control_step
+
+    def stamped(*a, **k):
+        stamps.append(sync_clock())
+        return control_step(*a, **k)
+    object.__setattr__(sim, "control_step", stamped)
+    return stamps
+
+
+def closed_loop(robots: int = 8, scenarios: int = 1024, steps: int = 10) -> None:
     """MultiAgentSim rollout of fov teams with the f32 IPM, all scenarios
     as one batch of robots x scenarios lanes per step."""
     tasks = [random_instance(robots, seed=s)["tasks"] for s in range(scenarios)]
@@ -692,14 +787,7 @@ def closed_loop(robots: int = 8, scenarios: int = 1024, steps: int = 20) -> None
     T = lambda a: torch.as_tensor(a, dtype=F32, device=DEV)
     sim = MultiAgentSim(fov_controller(robots - 1), robots, structured=True,
                         solver_cfg=IPM_F32_ENTRY)
-    stamps = []
-    control_step = sim.control_step
-
-    def stamped(*a, **k):
-        stamps.append(sync_clock())
-        return control_step(*a, **k)
-    object.__setattr__(sim, "control_step", stamped)      # the sim is a frozen dataclass
-
+    stamps = stamp_steps(sim)
     t0 = sync_clock()
     res = sim.rollout(State(T(so), T(np.zeros_like(so))), T(sf), steps)
     stamps.append(sync_clock())
@@ -716,41 +804,348 @@ def closed_loop(robots: int = 8, scenarios: int = 1024, steps: int = 20) -> None
         f"{np.mean(passed):.4f} of scenarios")
 
 
+# ---------------------------------------------------------------------------
+# the dense ADMM and the controllers that run on it
+# ---------------------------------------------------------------------------
+
+RUN_SIM_ITERS = 200          # run_sim's --solver-iters default
+
+
+def sweep_instance(robots: int, scenarios: int):
+    """apps/sweep.py's batch (:60-70): circle_rotate_instance at the
+    reference's fixed radius 4 with 0.05 m of start noise per scenario (numpy
+    seed 0). Returns (init State [S, A, 3], goals [S, A, 3], sf)."""
+    tasks = circle_rotate_instance(robots, radius=4.0)["tasks"]
+    so, sf = np.asarray(tasks["so"]), np.asarray(tasks["sf"])
+    rng = np.random.default_rng(0)
+    so_b = so[None] + np.concatenate([rng.normal(0, 0.05, (scenarios, robots, 2)),
+                                      np.zeros((scenarios, robots, 1))], -1)
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=F32, device=DEV)
+    init = State(T(so_b), T(np.zeros_like(so_b)))
+    return init, T(np.broadcast_to(sf, so_b.shape)), sf
+
+
+def dense_vs_f64(what: str, qp, n_cmp: int, lanes64: int = 512) -> None:
+    """One batch of QPs through the dense ADMM as run_sim configures it:
+    converged share, wall time, launches, and the distance to the same
+    solver in float64 on the card on the first lanes64 lanes, taken on the
+    first n_cmp columns of z (the control or the curve: the slack columns
+    behind them reach 1e5 on violated rows and are compared relatively)."""
+    cfg = ADMMConfig(iters=RUN_SIM_ITERS)
+    B, n, m = qp.q.shape[0], qp.n, qp.m
+    solve = lambda: solve_batch(qp, cfg)
+    solve()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sol, times = timed_calls(solve, 2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches, busy, wall = profile_counts(solve)
+    if KERNEL.launches:
+        raise AssertionError("the dense ADMM launched the structured kernel")
+    if tuple(sol.z.shape) != (B, n) or tuple(sol.y.shape) != (B, m):
+        raise AssertionError(f"{what}: solution shapes {tuple(sol.z.shape)}, {tuple(sol.y.shape)}")
+    conv = float(sol.converged.float().mean())
+    if not bool(torch.isfinite(sol.z[sol.converged]).all()):
+        raise AssertionError(f"{what}: a converged lane is not finite")
+    head = type(qp)(*(a[:lanes64].double() if a.shape[0] == B else a.double() for a in qp))
+    ref = solve_batch(head, cfg)
+    # float64 keeps tighter bars (1e-5 primal, 1e-3 dual) and seldom meets
+    # them in 200 iterations, so the distance is taken on every lane that
+    # is finite in both runs and, apart, on the lanes float32 calls converged
+    z32 = sol.z[:lanes64].double()
+    finite = torch.isfinite(z32).all(-1) & torch.isfinite(ref.z).all(-1)
+    dz = (z32 - ref.z)[:, :n_cmp].abs().amax(-1)
+    slack_rel = ((z32 - ref.z)[:, n_cmp:].abs() / ref.z[:, n_cmp:].abs().clamp_min(1.0))[finite]
+    conv32 = sol.converged[:lanes64] & finite
+    if not bool(finite.any()) or not bool(conv32.any()):
+        raise AssertionError(f"{what}: no lane of the first {lanes64} is finite and converged")
+    log(f"dense ADMM, {what} (n = {n}, m = {m}), {B} lanes, {cfg.iters} iterations: converged "
+        f"{conv:.4f}, primal residual <= 0.05 on {float((sol.pri_res <= 0.05).float().mean()):.4f}, "
+        f"{spread(times)}, {launches} kernel launches a solve, device busy "
+        f"{busy:.2f} ms of {wall:.2f} ms under the profiler, peak device memory {peak:.3f} GiB; "
+        f"float64 on the card, first {lanes64} lanes: converged by its own bars "
+        f"{float(ref.converged.float().mean()):.4f} (float32 "
+        f"{float(sol.converged[:lanes64].float().mean()):.4f}), primal residual <= 0.05 on "
+        f"{float((ref.pri_res <= 0.05).float().mean()):.4f} (float32 "
+        f"{float((sol.pri_res[:lanes64] <= 0.05).float().mean()):.4f}), |dz| on {int(finite.sum())} finite "
+        f"lanes median {float(dz[finite].median()):.3e}, max {float(dz[finite].max()):.3e}; on "
+        f"the {int(conv32.sum())} lanes float32 calls converged max {float(dz[conv32].max()):.3e}"
+        + (f"; slack columns, relative: max {float(slack_rel.max()):.3e}" if slack_rel.numel()
+           else ""))
+    # No bar on |dz| or on the shares: after 200 iterations neither precision
+    # is at the optimum of the badly scaled QPs (capped bounds of -1e6 against
+    # slacks of 1e6), two unconverged runs drift apart, and what float32
+    # costs in lanes is the finding this phase reports.
+    if not bool(torch.isfinite(sol.z).all()):
+        raise AssertionError(f"{what}: a lane of the float32 dense ADMM is not finite")
+
+
+def dense_admm_phase() -> None:
+    """The dense ADMM against float64: the fov flagship's IMPC-iteration-0
+    QPs at 8192 lanes and the cbf-fov QPs of an 8-robot sweep batch at 32768
+    lanes; then FovIMPCCBF.optimize (the dense IMPC step) at 8192 lanes."""
+    reset_counts()
+    ctrl, (cur, ref, nbr, mask) = bench_problem("fov", 8192)
+    ctrl.solver = ADMMConfig(iters=RUN_SIM_ITERS)
+    H = ctrl.impc.cbf_horizon
+    pred = cur.stacked[:, None, :].expand(8192, H, 6)
+    qp = ctrl.assemble(cur, ref, nbr, mask, pred, torch.arange(H, device=DEV) == 0)
+    dense_vs_f64("fov flagship QPs", qp, n_cmp=ctrl.op.n_dec)
+    del qp
+
+    cfg = cfgmod.load_config(BASE_CONFIG)
+    sim, _ = run_sim.build_sim(cfg, "cbf-fov", 8, RUN_SIM_ITERS, device=DEV)
+    init, goals, _ = sweep_instance(8, 4096)
+    xy, cov = sim._true_estimates(init)
+    flat = lambda x: x.reshape(8 * 4096, *x.shape[2:])
+    qp = sim.controller.assemble(flat(init.stacked), flat(sim._nominal(init, goals)), flat(xy),
+                                 flat(cov), torch.ones((8 * 4096, 7), dtype=torch.bool, device=DEV))
+    dense_vs_f64("cbf-fov QPs", qp, n_cmp=3)
+    del qp
+
+    step = lambda: ctrl.optimize(cur, ref, nbr, mask)
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res, times = timed_calls(step, 2)
+    usable = check_result(res, 8192)
+    log(f"dense IMPC step, FovIMPCCBF.optimize, 8192 lanes, ADMM {RUN_SIM_ITERS} iterations: "
+        f"usable {usable:.4f} (all iterations converged {float(res.all_converged.float().mean()):.4f}), "
+        f"{spread(times)}, {8192 * 2 / statistics.median(times):.1f} solves/s, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if usable < 0.5:
+        raise AssertionError(f"dense IMPC step usable rate {usable:.4f} < 0.5")
+
+
+def lambda2_path(timed: dict, batch: int = 32768) -> int:
+    """ConnectivityIMPCCBF(enable_connectivity=True) through StructuredIMPC:
+    m_d = 6 + H (1 + N) = 14 has a tiled instantiation of its own, so the
+    step must launch the tiled kernel, 4 times."""
+    ctrl, inputs = bench_problem("connectivity", batch, enable_connectivity=True)
+    if controller_shapes(ctrl) != LAMBDA2_SHAPES:
+        raise AssertionError(f"λ₂ connectivity shapes {controller_shapes(ctrl)}")
+    simpc = admm_stepper(ctrl)
+    phases = [p[0] for op in (simpc.op_qp, simpc.op_qp_tail) for p in op.phases]
+    if (batch, phases) != (timed["lanes"], timed["phases"]):
+        raise AssertionError(f"λ₂ step launches {batch} lanes for {phases}; timed alone at "
+                             f"{timed['lanes']}, {timed['phases']}")
+    step = lambda: simpc.optimize_batch(*inputs)
+    step()
+    torch.cuda.synchronize()
+    reset_counts()
+    res, times = timed_calls(step, 3)
+    launches = KERNEL.launches // 3
+    if KERNEL.launches != 12 or KERNEL.launches_by_variant["tiled"] != 12:
+        raise AssertionError(f"λ₂ connectivity launched {KERNEL.launches_by_variant} in 3 calls, "
+                             "expected the tiled kernel 4 times a call")
+    usable = check_result(res, batch)
+    plain = control_step(ctrl, inputs, use_kernel=False)
+    plain()
+    res_t, times_t = timed_calls(plain, 1)
+    usable_t = check_result(res_t, batch)
+    if KERNEL.launches != 12:
+        raise AssertionError("the plain loop launched the kernel")
+    lam2, _ = ctrl.cbf.lambda2(torch.cat([inputs[0].pos[:, None, :2], inputs[2][..., :2]], 1))
+    conn = lam2 > ctrl.LAMBDA2_THRESHOLD
+    log(f"λ₂ connectivity, {batch} lanes, ADMM through StructuredIMPC, tiled kernel x{launches} "
+        f"a call: usable {usable:.4f} (plain loop {usable_t:.4f}, {times_t[0] * 1e3:.2f} ms; flags "
+        f"differ on {int((res.success != res_t.success).sum())} lanes), {spread(times)}, "
+        f"{batch * 2 / statistics.median(times):.1f} solves/s; λ₂ > 0.1 on "
+        f"{float(conn.float().mean()):.4f} of lanes (the λ₂ row: usable "
+        f"{float(res.success[conn].float().mean()):.4f}), the hard CLF rows on the rest (usable "
+        f"{float(res.success[~conn].float().mean()):.4f})")
+    # bench.py's random teams sit 2.5-4 m apart with d_max = 4 m: most are
+    # barely connected, and three hard CLF rows at once are often infeasible
+    # (the JAX package gives the same flags lane for lane on the CPU), so the
+    # bar is agreement with the plain route, not a rate
+    if abs(usable - usable_t) > 0.01 or usable < 0.3:
+        raise AssertionError(f"λ₂ connectivity usable rates: kernel {usable:.4f}, plain "
+                             f"{usable_t:.4f} (bars: within 0.01, kernel >= 0.3)")
+    return launches
+
+
+def eigh_check(scenarios: int = 4096, robots: int = 8) -> None:
+    """The batched float32 eigh of [S, A, A] Laplacians on the card (cuSOLVER)
+    against a float64 eigh on the host: time and deviation of λ₂."""
+    init, _, _ = sweep_instance(robots, scenarios)
+    cbf = ConnectivityCBF(2.0, 4.0, MPCParams().v_min, MPCParams().v_max)
+    xy = init.pos[..., :2]
+    lam2, vec = cbf.lambda2(xy)
+    ms = cuda_ms(lambda: cbf.lambda2(xy), reps=5)
+    lam2_host, _ = cbf.lambda2(xy.double().cpu())
+    dev = (lam2.double().cpu() - lam2_host).abs()
+    log(f"λ₂ of {scenarios} teams of {robots} (float32 torch.linalg.eigh of [{scenarios}, {robots}, "
+        f"{robots}] on the card): {ms:.3f} ms with the adjacency; against a float64 eigh on the "
+        f"host max |dλ₂| {float(dev.max()):.3e} (λ₂ {float(lam2_host.min()):.4f}.."
+        f"{float(lam2_host.max()):.4f}); eigenvector norms {float(vec.norm(dim=-1).min()):.6f}.."
+        f"{float(vec.norm(dim=-1).max()):.6f}")
+    if float(dev.max()) > 1e-3 or not bool(torch.isfinite(vec).all()):
+        raise AssertionError("the float32 eigh on the card is far from float64 on the host")
+
+
+def sweep_loop(what: str, sim, robots: int, scenarios: int, steps: int,
+               profile_step: bool = False) -> None:
+    """A closed loop of `scenarios` sweep instances as one batch: ms per
+    step, solver success, instance_success share, minimum pairwise distance
+    and peak device memory. Every trajectory must be finite. No bar on the
+    solver's success: on these 8-robot rings the single-step CBF-QPs mostly
+    fail to converge in 200 iterations in the JAX package too
+    (tests/test_torch_cbf_sims.py holds the two packages together there)."""
+    init, goals, sf = sweep_instance(robots, scenarios)
+    sim.control_step(init, goals)                        # warm-up (torch.func, cuSOLVER)
+    torch.cuda.synchronize()
+    if profile_step:
+        launches, busy, wall = profile_counts(lambda: sim.control_step(init, goals))
+        log(f"  one {what} control step of {robots * scenarios} lanes under torch.profiler: "
+            f"{launches} kernel launches, device busy {busy:.2f} ms of {wall:.2f} ms "
+            f"({100 * busy / wall:.1f} %)")
+    stamps = stamp_steps(sim)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = sim.rollout(init, goals, steps)
+    stamps.append(sync_clock())
+    per_step = np.diff(stamps) * 1e3
+    traj = res.traj_pos.cpu().numpy()                     # [S, T, A, 3]
+    if not (np.isfinite(traj).all() and np.isfinite(res.traj_vel.cpu().numpy()).all()):
+        raise AssertionError(f"{what}: a trajectory is not finite")
+    if traj.shape != (scenarios, steps, robots, 3):
+        raise AssertionError(f"{what}: trajectory shape {traj.shape}")
+    passed = np.mean([instance_success(traj[s].transpose(1, 0, 2), sf)[0]
+                      for s in range(scenarios)])
+    d = np.linalg.norm(traj[:, :, :, None, :2] - traj[:, :, None, :, :2], axis=-1)
+    d += 1e9 * np.eye(robots)
+    success = float(res.success.float().mean())
+    log(f"{what}, {robots} robots x {scenarios} scenarios = {robots * scenarios} lanes, {steps} "
+        f"steps of 0.1 s: median {np.median(per_step):.2f} ms per step ({per_step.min():.2f}.."
+        f"{per_step.max():.2f}), solver success {success:.4f}, instance_success {passed:.4f} of "
+        f"scenarios, minimum pairwise distance {d.min():.3f} m, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, structured-kernel launches "
+        f"{KERNEL.launches}")
+    if hasattr(res, "est_mean") and not bool(torch.isfinite(res.est_mean).all()):
+        raise AssertionError(f"{what}: an estimate is not finite")
+
+
+def sweep_loops() -> None:
+    """The closed loops that run on the dense ADMM, built as run_sim builds
+    them from configs/base_config.json (slack mode on, zero noise here), at
+    the width of a sweep."""
+    cfg = cfgmod.load_config(BASE_CONFIG)
+    cfg["physical_limits"] = dict(cfg["physical_limits"], pos_std=0.0, vel_std=0.0)
+    build = lambda name, **kw: run_sim.build_sim(cfg, name, 8, RUN_SIM_ITERS, device=DEV, **kw)[0]
+    sweep_loop("CBFOnlySim, cbf-fov", build("cbf-fov"), 8, 4096, 60, profile_step=True)
+    sweep_loop("CBFOnlySim, cbf-fov with the particle filter (229376 filters of 256 particles)",
+               build("cbf-fov", use_pf=True), 8, 4096, 60)
+    sweep_loop("CBFOnlySim, cbf-connectivity", build("cbf-connectivity"), 8, 4096, 60)
+    sweep_loop("BezierMPCSim, mpc", build("mpc"), 8, 1024, 20)
+    dense = build("fov")
+    sweep_loop("MultiAgentSim(structured=False), fov through the dense ADMM",
+               MultiAgentSim(dense.controller, 8), 8, 256, 5)
+
+
+#: what the JAX package's runner gives for the same command on a CPU
+#: (python -m mpc_cbf_tpu.apps.run_sim ... --platform cpu, 3r/rotate, 8 s):
+#: (success, solver_success_rate). Where the port misses the bar below and
+#: the JAX package misses it too, the run reports both and goes on.
+JAX_CPU_RUN_SIM = {
+    "connectivity": (True, 0.9958), "connectivity --enable-connectivity": (True, 1.0),
+    "fov": (True, 1.0), "single-shot": (True, 0.9875), "mpc": (True, 1.0),
+    "cbf-connectivity": (True, 0.9917), "cbf-fov": (True, 0.9958), "cbf-fov --pf": (True, 0.9958),
+}
+
+
+def command_line() -> None:
+    """mpc_cbf_torch.apps.run_sim.main, the command a user types, on the
+    3-robot rotate instance for 8 s of flight: every controller, the λ₂/CLF
+    family and the particle filter. Bars (what the JAX package's runner
+    reaches on these rotate instances): success and solver_success_rate >= 0.95."""
+    variants = [("connectivity",), ("connectivity", "--enable-connectivity"), ("fov",),
+                ("single-shot",), ("mpc",), ("cbf-connectivity",), ("cbf-fov",),
+                ("cbf-fov", "--pf")]
+    out = _build.BUILD_ROOT / "run_sim_states.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    for variant in variants:
+        argv = ["--base", BASE_CONFIG, "--task", TASK_3R, "--controller", variant[0],
+                *variant[1:], "--sim-runtime", "8.0", "--out", str(out)]     # --device: cuda
+        reset_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = run_sim.main(argv)
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        states = json.loads(out.read_text())
+        name = " ".join(variant)
+        traj = np.array([states["robots"][str(i)]["states"] for i in range(3)])
+        if traj.shape != (3, summary["steps"], 6) or not np.isfinite(traj).all():
+            raise AssertionError(f"run_sim {name}: states.json holds {traj.shape}")
+        ms = summary["wall_s"] * 1e3 / summary["steps"]
+        log(f"run_sim --controller {name}, 3r/rotate, 8 s on cuda: success {summary['success']}, "
+            f"makespan {summary['makespan']}, solver_success_rate "
+            f"{summary['solver_success_rate']:.4f}, {ms:.2f} ms per replan step of one team "
+            f"(mean of {summary['steps']} steps, the first included; budget 100 ms: "
+            f"{'within' if ms <= 100 else 'OVER'}), structured-kernel launches {KERNEL.launches} "
+            f"{dict((k, v) for k, v in KERNEL.launches_by_variant.items() if v)}")
+        ok = rc == 0 and summary["success"] and summary["solver_success_rate"] >= 0.95
+        if not ok:
+            jax_ok, jax_rate = JAX_CPU_RUN_SIM[name]
+            log(f"  below the bar (success and solver_success_rate >= 0.95); the JAX package on "
+                f"a CPU: success {jax_ok}, solver_success_rate {jax_rate:.4f}")
+            if jax_ok and jax_rate >= 0.95:
+                raise AssertionError(f"run_sim {name} misses the bar the JAX package meets")
+        if variant[0] in ("connectivity", "single-shot") and not KERNEL.launches:
+            raise AssertionError(f"run_sim {name} did not launch the structured ADMM kernel")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; it needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card()
-    build()
+    phase("kernel build", build)
     swarm = {mode: swarm_problem(mode, scenarios=128) for mode in ("connectivity", "fov")}
     swarm_shapes = {mode: controller_shapes(ctrl) for mode, (ctrl, _) in swarm.items()}
     if swarm_shapes["connectivity"] != SWARM_CONN_SHAPES or swarm_shapes["fov"]["m_d"] != 372:
         raise AssertionError(f"32-agent shapes {swarm_shapes}")
-    errs = check_kernel(swarm_shapes["fov"])
-    rows = {
-        "tiled_fov": time_phases("fov", FOV_SHAPES, 8192, first_version=True),
-        "tiled_connectivity": time_phases("connectivity", CONN_SHAPES, 32768,
-                                          first_version=True),
-        # at the lanes and phase lengths the 32-agent steps below give a launch:
-        # all 4096 lanes, and one lane chunk of 2048
-        "resident": time_phases("32-agent connectivity", SWARM_CONN_SHAPES, 4096,
-                                phases=SWARM_PHASES["connectivity"]),
-        "streamed": time_phases("32-agent fov", swarm_shapes["fov"], 2048,
-                                phases=SWARM_PHASES["fov"], reps=1),
-    }
-    rows["tiled_fov"]["launches"] = fov_main_path()
-    rows["tiled_connectivity"]["launches"] = connectivity_path()
-    rows["resident"]["launches"] = swarm_path("connectivity", *swarm["connectivity"], "resident",
-                                             rows["resident"])
-    rows["streamed"]["launches"] = swarm_path("fov", *swarm["fov"], "streamed", rows["streamed"])
+    errs = phase("kernels against the twin", check_kernel, swarm_shapes["fov"])
+
+    def time_kernels() -> dict:
+        return {
+            "tiled_fov": time_phases("fov", FOV_SHAPES, 8192, first_version=True),
+            "tiled_connectivity": time_phases("connectivity", CONN_SHAPES, 32768,
+                                              first_version=True),
+            # at the lanes and phase lengths the 32-agent steps below give a launch:
+            # all 4096 lanes, and one lane chunk of 2048
+            "resident": time_phases("32-agent connectivity", SWARM_CONN_SHAPES, 4096,
+                                    phases=SWARM_PHASES["connectivity"]),
+            "streamed": time_phases("32-agent fov", swarm_shapes["fov"], 2048,
+                                    phases=SWARM_PHASES["fov"], reps=1),
+            # the 4-robot connectivity step with the λ₂/CLF rows
+            "tiled_lambda2": time_phases("connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES,
+                                         32768, first_version=True),
+        }
+    rows = phase("kernels timed alone", time_kernels)
+    rows["tiled_fov"]["launches"] = phase("fov ADMM step", fov_main_path)
+    rows["tiled_connectivity"]["launches"] = phase("connectivity ADMM step", connectivity_path)
+    rows["resident"]["launches"] = phase(
+        "32-agent connectivity step", swarm_path, "connectivity", *swarm["connectivity"],
+        "resident", rows["resident"])
+    rows["streamed"]["launches"] = phase(
+        "32-agent fov step", swarm_path, "fov", *swarm["fov"], "streamed", rows["streamed"])
     del swarm
     torch.cuda.empty_cache()
-    ipm_device_parity()
-    fov_ipm_path()
-    connectivity_ipm_path()
-    fov_hybrid_path()
-    closed_loop()
+    rows["tiled_lambda2"]["launches"] = phase("λ₂ connectivity step", lambda2_path,
+                                              rows["tiled_lambda2"])
+    phase("f64 IPM, card against host", ipm_device_parity)
+    phase("fov f32 IPM", fov_ipm_path)
+    phase("connectivity f32 IPM", connectivity_ipm_path)
+    phase("fov HYBRID_PROD", fov_hybrid_path)
+    phase("closed loop, fov f32 IPM", closed_loop)
+    phase("dense ADMM", dense_admm_phase)
+    torch.cuda.empty_cache()
+    phase("batched eigh", eigh_check)
+    phase("sweep loops", sweep_loops)
+    phase("command line", command_line)
+    log(f"  [all phases: {time.perf_counter() - t_start:.1f} s]")
     print(json.dumps({"kernels": [{
         "name": f"structured_admm_{row}", "route": "cuda",
         "source": SOURCES[row.split("_")[0]],

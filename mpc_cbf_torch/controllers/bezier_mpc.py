@@ -1,5 +1,6 @@
-"""Piecewise-Bézier MPC operator: static precompute + batched QP pieces
-(counterpart of ``mpc_cbf_tpu/controllers/bezier_mpc.py:35-213``).
+"""Piecewise-Bézier MPC operator (static precompute + batched QP pieces)
+and the CBF-free ``BezierMPC`` controller (counterpart of
+``mpc_cbf_tpu/controllers/bezier_mpc.py``).
 
 Reference parity:
 - operators:  ``mpc/src/optimization/PiecewiseBezierMPCQPOperations.cpp``
@@ -8,26 +9,28 @@ Reference parity:
 - generator:  ``mpc/src/optimization/PiecewiseBezierMPCQPGenerator.cpp``
   (addEvalConstraint :167-180, addContinuityConstraint :182-229,
   addEvalBoundConstraints :148-165, addHyperplaneConstraintForPiece :229-…)
+- controller: ``mpc/src/controller/BezierMPC.cpp:36-98``
 
 Every matrix the reference assembles per solve with Eigen is either static
 (precomputed once with float64 numpy, then held as a tensor on the
 operator's device in its dtype) or a batched contraction of the current
 state (linear cost, Voronoi rows). The methods take batch-first tensors:
-``[B, ...]``. ``BezierMPC`` (the dense-solver controller) is not ported yet.
+``[B, ...]``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from mpc_cbf_torch.types import BIG
+from mpc_cbf_torch.types import BIG, QPBatch, State
 from mpc_cbf_torch.models.double_integrator import DoubleIntegrator
 from mpc_cbf_torch.ops.bernstein import PiecewiseBezier
 from mpc_cbf_torch.ops.geometry import voronoi_hyperplane, shift_hyperplane_for_box
+from mpc_cbf_torch.ops.qp.admm import ADMMConfig, solve_batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +148,10 @@ class BezierMPCOperator:
         self._bound_A = t(np.concatenate([self.acc_rows, self.vel_rows]))
         self._bound_lb = t(np.concatenate([np.tile(mpc.a_min, K), np.tile(mpc.v_min, K)]))
         self._bound_ub = t(np.concatenate([np.tile(mpc.a_max, K), np.tile(mpc.v_max, K)]))
+        self._P = t(self.P_static)
+        self._eq_A = t(np.concatenate([self.init_pos_rows, self.init_vel_rows, self.cont_rows]))
+        self._U_steps = t(self.U_basis.reshape(K, dim, self.n_dec))
+        self._eval_cache = {}
 
     def tensor(self, a) -> torch.Tensor:
         """A constant on this operator's device in its dtype."""
@@ -159,6 +166,14 @@ class BezierMPCOperator:
         return 2.0 * ((drift - ref_positions) * self._w) @ self._Phi
 
     # ----- constraint blocks ------------------------------------------------
+    def equality_rows(self, current: State):
+        """(A [m, n_dec], lb [B, m], ub [B, m]) for init-state + continuity
+        equalities; the coefficients are shared by all lanes."""
+        B = current.pos.shape[0]
+        target = torch.cat([current.pos, current.vel,
+                            current.pos.new_zeros((B, self.cont_rows.shape[0]))], dim=-1)
+        return self._eq_A, target, target
+
     def bound_rows(self):
         """(A, lb, ub) for sampled accel + vel bounds (shared by all lanes)."""
         return self._bound_A, self._bound_lb, self._bound_ub
@@ -192,3 +207,81 @@ class BezierMPCOperator:
             torch.full((B, N * P), -BIG, dtype=rows.dtype, device=rows.device),
             ub.reshape(B, N * P),
         )
+
+    def cbf_row_from_state_row(self, a: torch.Tensor, b: torch.Tensor, k):
+        """Lift instantaneous CBF rows (a . u_k + b >= 0) onto control
+        points via the acceleration sampling basis:
+        -(a . U_basis[k-block]) z <= b (FovMPCCBFQPOperations.cpp:28-41).
+
+        k is the horizon step (an int, or an integer tensor [...] with one
+        step per row), a [..., dim], b [...].
+        """
+        return -torch.einsum("...d,...dj->...j", a, self._U_steps[k]), b
+
+    # ----- curve evaluation -------------------------------------------------
+    def eval_matrix(self, ts: Sequence[float], derivative: int = 0) -> torch.Tensor:
+        """[len(ts)*dim, n_dec] sampling operator as a tensor, made once per
+        (ts, derivative)."""
+        key = (tuple(float(t) for t in ts), derivative)
+        if key not in self._eval_cache:
+            self._eval_cache[key] = self.tensor(self.pw.eval_matrix(list(key[0]), derivative))
+        return self._eval_cache[key]
+
+    def eval_solution(self, z: torch.Tensor, ts: Sequence[float],
+                      derivative: int = 0) -> torch.Tensor:
+        """The curve's derivative at times ts: z [..., n_dec] -> [..., len(ts), dim]."""
+        out = z @ self.eval_matrix(ts, derivative).T
+        return out.reshape(*out.shape[:-1], len(ts), self.dim)
+
+
+class BezierMPC:
+    """Goal-reaching Bézier MPC without CBF (BezierMPC.cpp:36-98), over a
+    batch of lanes."""
+
+    def __init__(self, op: BezierMPCOperator, max_neighbors: int = 0,
+                 box_half_extents=None, solver: ADMMConfig = ADMMConfig(iters=150)):
+        self.op = op
+        self.N = max_neighbors
+        self.box = op.tensor(
+            box_half_extents if box_half_extents is not None else np.zeros(op.dim)
+        )
+        self.solver = solver
+        self.m = (
+            2 * op.dim  # init
+            + op.cont_rows.shape[0]
+            + 2 * op.dim * op.mpc.k_hor  # acc+vel bounds
+            + max_neighbors * op.bezier.num_control_points
+        )
+
+    def assemble(self, current: State, ref_positions: torch.Tensor,
+                 other_positions: Optional[torch.Tensor] = None,
+                 other_mask: Optional[torch.Tensor] = None) -> QPBatch:
+        """current [B, dim] State, ref_positions [B, dim*K], other_positions
+        [B, N, dim], other_mask [B, N]. P [n, n] is shared by the lanes."""
+        op = self.op
+        B = ref_positions.shape[0]
+        q = op.linear_cost(current.stacked, ref_positions)
+
+        A_eq, lb_eq, ub_eq = op.equality_rows(current)
+        A_bd, lb_bd, ub_bd = op.bound_rows()
+        A = [A_eq.expand(B, -1, -1), A_bd.expand(B, -1, -1)]
+        lb = [lb_eq, lb_bd.expand(B, -1)]
+        ub = [ub_eq, ub_bd.expand(B, -1)]
+        if self.N:
+            A_v, lb_v, ub_v = op.voronoi_rows(current.pos, other_positions, other_mask, self.box)
+            A.append(A_v)
+            lb.append(lb_v)
+            ub.append(ub_v)
+        return QPBatch(P=op._P, q=q, A=torch.cat(A, dim=1), lb=torch.cat(lb, dim=-1),
+                       ub=torch.cat(ub, dim=-1))
+
+    def plan(self, current: State, ref_positions: torch.Tensor,
+             other_positions: Optional[torch.Tensor] = None,
+             other_mask: Optional[torch.Tensor] = None,
+             warm: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None):
+        """Solve one MPC step for every lane; returns (coeffs [B, n_dec],
+        solution)."""
+        qp = self.assemble(current, ref_positions, other_positions, other_mask)
+        x0, y0 = warm if warm is not None else (None, None)
+        sol = solve_batch(qp, self.solver, x0=x0, y0=y0)
+        return sol.z, sol

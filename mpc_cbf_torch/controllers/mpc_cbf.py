@@ -24,11 +24,11 @@ Slack weights are distance-ranked (nearest neighbor keeps the highest
 violation price): w_i = slack_cost * decay^rank(i)
 (ConnectivityIMPCCBF.cpp:74-101).
 
-Ported: the structured batch controller ``StructuredIMPC`` over the Woodbury
-ADMM, the f32/f64 Mehrotra IPM and the f32 -> f64 hybrid IPM, and the
-assembly they need. Not yet: the dense ``optimize``/``assemble`` path with
-``BezierMPCCBF``, the λ₂/CLF rows of
-``ConnectivityIMPCCBF(enable_connectivity=True)`` and the f64 polish.
+Two routes run the same assembly: ``optimize`` solves each lane's dense
+QP with the batched ADMM (``ops/qp/admm.py``), and ``StructuredIMPC`` runs
+the batch through the structure-exploiting solvers (the Woodbury ADMM, the
+f32/f64 Mehrotra IPM, the f32 -> f64 hybrid IPM). Not ported yet: the f64
+active-set polish.
 """
 
 from __future__ import annotations
@@ -40,9 +40,10 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from mpc_cbf_torch.types import BIG, State
+from mpc_cbf_torch.types import BIG, QPBatch, State
 from mpc_cbf_torch.ops.cbf import FovCBF, ConnectivityCBF
 from mpc_cbf_torch.ops.geometry import distance_to_ellipse
+from mpc_cbf_torch.ops.qp.admm import ADMMConfig, solve_batch
 from mpc_cbf_torch.ops.qp.structured import StructuredConfig, StructuredQPOperator
 from mpc_cbf_torch.ops.qp.ipm import HybridIPM, HybridIPMConfig, IPMConfig, StructuredIPM
 from mpc_cbf_torch.controllers.bezier_mpc import BezierMPCOperator
@@ -115,11 +116,15 @@ class _IMPCCBFBase:
     #: extra dynamic rows beyond the CBF block (e.g. Voronoi); set by variants
     m_extra: int = 0
 
-    def __init__(self, op: BezierMPCOperator, impc: IMPCParams, max_neighbors: int):
+    def __init__(self, op: BezierMPCOperator, impc: IMPCParams, max_neighbors: int,
+                 solver: ADMMConfig = ADMMConfig(iters=150)):
         self.op = op
         self.impc = impc
         self.N = max_neighbors
         self.S = max_neighbors if impc.slack_mode else 0
+        #: the dense route's solver (``optimize``); a sim's structured route
+        #: takes its iteration budget from it when given no config of its own
+        self.solver = solver
         self.n = op.n_dec + self.S
 
         upto = op.bezier.continuity_degree + (1 if self.continuity_inclusive else 0)
@@ -128,13 +133,25 @@ class _IMPCCBFBase:
 
         H, F, N = impc.cbf_horizon, self.num_families, max_neighbors
         # U_basis row block of each CBF horizon step: [H, dim, n_dec]
-        self._U_steps = op.tensor(op.U_basis[: H * op.dim].reshape(H, op.dim, op.n_dec))
+        self._U_steps = op._U_steps[:H]
         # reachable |u| under asymmetric bounds is max(|a_min|, |a_max|)
         self._a_reach = float(max(np.max(np.abs(np.asarray(op.mpc.a_max))),
                                   np.max(np.abs(np.asarray(op.mpc.a_min)))))
         # slack column of each CBF row: rows are laid out [H, N, F]
         slack_idx = np.broadcast_to(np.arange(N)[None, :, None], (H, N, F))
-        self._slack_idx = torch.as_tensor(slack_idx.reshape(self.m_cbf), device=op.device)
+        self._slack_idx = torch.as_tensor(np.ascontiguousarray(slack_idx).reshape(self.m_cbf),
+                                          device=op.device)
+        # the dense route's shared blocks, in the order assemble stacks them
+        self._A_eq = op.tensor(np.concatenate([op.init_pos_rows, op.init_vel_rows,
+                                               self._cont_rows]))
+        P = np.zeros((self.n, self.n))
+        P[: op.n_dec, : op.n_dec] = op.P_static
+        self._P = op.tensor(P)
+        self._slack_rows = op.tensor(np.concatenate(
+            [np.zeros((self.S, op.n_dec)), np.eye(self.S)], axis=1))
+        hs = list(np.asarray(op.h_samples[:H]))
+        self._pos_E = op.tensor(op.pw.eval_matrix(hs, 0))
+        self._vel_E = op.tensor(op.pw.eval_matrix(hs, 1))
 
     # -- variant hooks -------------------------------------------------------
     def _cbf_rows_at(self, x: Tensor, neighbor_blob: Tensor):
@@ -208,6 +225,99 @@ class _IMPCCBFBase:
         if mask is not None:
             cols = torch.where(mask[..., None], cols, torch.zeros_like(cols))
         return torch.cat([A, cols], dim=-1)
+
+    # -- dense assembly ------------------------------------------------------
+    def _static_blocks(self, current: State):
+        """((A_eq, lb_eq, ub_eq), (A_bd, lb_bd, ub_bd)): the init-state and
+        continuity equalities and the sampled bounds, coefficients [m, n_dec]
+        shared by the lanes, targets [B, m]."""
+        B = current.pos.shape[0]
+        t_eq = torch.cat([current.pos, current.vel,
+                          current.pos.new_zeros((B, self._cont_rows.shape[0]))], -1)
+        A_bd, lb_bd, ub_bd = self.op.bound_rows()
+        return (self._A_eq, t_eq, t_eq), (A_bd, lb_bd.expand(B, -1), ub_bd.expand(B, -1))
+
+    def assemble(self, current: State, ref_positions: Tensor, neighbor_blob: Tensor,
+                 neighbor_mask: Tensor, pred_states: Tensor, active_k: Tensor) -> QPBatch:
+        """Each lane's dense QP: current [B, dim] State, ref [B, dim*K],
+        neighbor_blob [B, N, ...], neighbor_mask [B, N], pred_states
+        [B, H, 2*dim], active_k [H]. Rows: equalities, sampled bounds, CBF
+        rows, the variant's extra rows, slack nonnegativity. P [n, n] is
+        shared by the lanes."""
+        B = ref_positions.shape[0]
+        q = self.cost_vector(current, ref_positions, neighbor_blob, neighbor_mask)
+        (A_eq, lb_eq, ub_eq), (A_bd, lb_bd, ub_bd) = self._static_blocks(current)
+        A_d, lb_d, ub_d = self.dynamic_rows(current, neighbor_blob, neighbor_mask,
+                                            pred_states, active_k)
+        A = [self._widen(A_eq).expand(B, -1, -1), self._widen(A_bd).expand(B, -1, -1), A_d]
+        lb, ub = [lb_eq, lb_bd, lb_d], [ub_eq, ub_bd, ub_d]
+        if self.S:
+            A.append(self._slack_rows.expand(B, -1, -1))
+            lb.append(q.new_zeros((B, self.S)))
+            ub.append(q.new_full((B, self.S), BIG))
+        return QPBatch(P=self._P, q=q, A=torch.cat(A, dim=1), lb=torch.cat(lb, dim=-1),
+                       ub=torch.cat(ub, dim=-1))
+
+    def predicted_states(self, coeffs: Tensor) -> Tensor:
+        """[B, H, 2*dim]: an iterate's curve sampled at the first
+        cbf_horizon replan times."""
+        B, H, dim = coeffs.shape[0], self.impc.cbf_horizon, self.op.dim
+        pos = (coeffs @ self._pos_E.T).reshape(B, H, dim)
+        vel = (coeffs @ self._vel_E.T).reshape(B, H, dim)
+        return torch.cat([pos, vel], dim=-1)
+
+    # -- the IMPC loop over the dense solver ---------------------------------
+    def optimize(self, current: State, ref_positions: Tensor, neighbor_blob: Tensor,
+                 neighbor_mask: Tensor, warm: Optional[Tensor] = None) -> IMPCResult:
+        """Run impc_iter assembly+solve rounds on every lane's dense QP
+        (FovBezierIMPCCBF.cpp:84-223): current [B, dim] State, ref
+        [B, dim*K], neighbor_blob [B, N, ...], neighbor_mask [B, N].
+
+        warm: optional [B, n] primal warm start (e.g. previous MPC step).
+        """
+        op, H = self.op, self.impc.cbf_horizon
+        B = ref_positions.shape[0]
+        dev = current.pos.device
+
+        # iteration 0: only step 0 active, pred state = current state
+        x_now = current.stacked
+        pred = x_now[:, None, :].expand(B, H, x_now.shape[-1])
+        active = torch.arange(H, device=dev) == 0
+
+        x0, y0 = warm, None
+        coeffs = x_now.new_zeros((B, op.n_dec))
+        # the curve actually flown: the LAST USABLE iterate (the reference
+        # appends a curve per successful solve and the caller flies
+        # trajs.back(), MPCCBFFormationControl_example.cpp:160-163)
+        best = x_now.new_zeros((B, op.n_dec))
+        any_ok = torch.zeros(B, dtype=torch.bool, device=dev)
+        all_ok = torch.ones(B, dtype=torch.bool, device=dev)
+        worst = x_now.new_zeros(B)
+        iterates = []
+
+        for it in range(self.impc.impc_iter):
+            if it > 0:
+                pred = self.predicted_states(coeffs)
+                active = torch.ones(H, dtype=torch.bool, device=dev)
+            qp = self.assemble(current, ref_positions, neighbor_blob, neighbor_mask,
+                               pred, active)
+            sol = solve_batch(qp, self.solver, x0=x0, y0=y0)
+            coeffs = sol.z[:, : op.n_dec]
+            x0, y0 = sol.z, sol.y
+            finite = torch.all(torch.isfinite(sol.z), dim=-1)
+            usable = sol.converged | ((sol.pri_res <= self.USABLE_PRI_EPS) & finite)
+            best = torch.where(usable[:, None], coeffs, best)
+            any_ok = any_ok | usable
+            all_ok = all_ok & sol.converged
+            worst = torch.maximum(worst, sol.pri_res)
+            iterates.append(coeffs)
+
+        last_finite = torch.all(torch.isfinite(coeffs), dim=-1)
+        fly = torch.where(any_ok[:, None], best,
+                          torch.where(last_finite[:, None], coeffs, best))
+        return IMPCResult(coeffs=fly, success=any_ok,
+                          flyable=any_ok | last_finite, all_converged=all_ok,
+                          pri_res=worst, iterates=torch.stack(iterates, dim=0))
 
     # -- structured assembly -------------------------------------------------
     def static_parts(self):
@@ -294,8 +404,9 @@ class FovIMPCCBF(_IMPCCBFBase):
     continuity_inclusive = False
 
     def __init__(self, op: BezierMPCOperator, cbf: FovCBF, impc: IMPCParams,
-                 max_neighbors: int, box_half_extents=None):
-        super().__init__(op, impc, max_neighbors)
+                 max_neighbors: int, box_half_extents=None,
+                 solver: ADMMConfig = ADMMConfig(iters=150)):
+        super().__init__(op, impc, max_neighbors, solver)
         self.cbf = cbf
         self.m_extra = max_neighbors * op.bezier.num_control_points
         self.box = op.tensor(
@@ -334,26 +445,75 @@ class FovIMPCCBF(_IMPCCBFBase):
         return [(self._widen(A_v), lb_v, ub_v)]
 
 
+class BezierMPCCBF(FovIMPCCBF):
+    """Non-iterative single-shot MPC-CBF (reference
+    ``mpc_cbf/src/controller/BezierMPCCBF.cpp:32-85``): one QP with the
+    3 FoV CBF families (safety, fov-lb, fov-rb; no range row, :61-67)
+    evaluated at the *current* state and applied at horizon step 0. No
+    slack variables, no Voronoi rows (the reference stores a collision
+    shape but never adds hyperplane constraints in optimize()).
+
+    neighbor_blob per neighbor: [2] = target x, y.
+    """
+
+    num_families = 3
+    continuity_inclusive = False
+
+    def __init__(self, op: BezierMPCOperator, cbf: FovCBF, max_neighbors: int,
+                 solver: ADMMConfig = ADMMConfig(iters=150)):
+        impc = IMPCParams(cbf_horizon=1, impc_iter=1, slack_mode=False)
+        super().__init__(op, cbf, impc, max_neighbors, solver=solver)
+        self.m_extra = 0  # no Voronoi rows in the single-shot variant
+
+    def _cbf_rows_at(self, x, nbr):
+        t_xy = nbr[:2]
+        a_s, b_s = self.cbf.safety_row(x, t_xy)
+        a_l, b_l = self.cbf.lb_row(x, t_xy)
+        a_r, b_r = self.cbf.rb_row(x, t_xy)
+        return torch.stack([a_s, a_l, a_r]), torch.stack([b_s, b_l, b_r])
+
+    def _neighbor_distance(self, current_pos, neighbor_blob):
+        return torch.linalg.vector_norm(
+            neighbor_blob[..., :2] - current_pos[:, None, :2], dim=-1)
+
+    def _extra_rows(self, current, neighbor_blob, neighbor_mask,
+                    pred_states, active_k):
+        return None
+
+    def derivative_control_inputs(self, coeffs: Tensor, derivative_degree: int) -> Tensor:
+        """Sampled derivative at the Ts grid: U_basis(ts) @ coeffs
+        (BezierMPCCBF.cpp:88-99). coeffs [..., n_dec] -> [..., len(ts_samples)*dim]."""
+        return coeffs @ self.op.eval_matrix(self.op.ts_samples, derivative_degree).T
+
+
 class ConnectivityIMPCCBF(_IMPCCBFBase):
     """Connectivity variant: pairwise safety CBF per neighbor
-    (ConnectivityIMPCCBF.cpp:135-160), no Voronoi rows, continuity degrees
-    0..continuity (inclusive, :127-132).
+    (ConnectivityIMPCCBF.cpp:135-160; the lambda2/CLF block is present but
+    disabled in the reference, see the enable_connectivity flag), no Voronoi
+    rows, continuity degrees 0..continuity (inclusive, :127-132).
 
-    neighbor_blob per neighbor: full state [6]. The λ₂/CLF family
-    (``enable_connectivity=True``) is not ported yet.
+    neighbor_blob per neighbor: full state [6].
     """
 
     num_families = 1
     continuity_inclusive = True
 
+    #: λ₂ > threshold -> single connectivity CBF row, else pairwise CLF
+    #: rows (ConnectivityControl.cpp:70-72; the MPC-level block at
+    #: ConnectivityIMPCCBF.cpp:144-157 is commented out in the reference;
+    #: enable_connectivity=True turns on the constraint family it intended)
+    LAMBDA2_THRESHOLD = 0.1
+
     def __init__(self, op: BezierMPCOperator, cbf: ConnectivityCBF, impc: IMPCParams,
-                 max_neighbors: int, enable_connectivity: bool = False):
-        if enable_connectivity:
-            raise NotImplementedError(
-                "the λ₂-connectivity/CLF rows are not ported to mpc_cbf_torch yet")
-        super().__init__(op, impc, max_neighbors)
+                 max_neighbors: int, solver: ADMMConfig = ADMMConfig(iters=150),
+                 enable_connectivity: bool = False):
+        super().__init__(op, impc, max_neighbors, solver)
         self.cbf = cbf
-        self.enable_connectivity = False
+        self.enable_connectivity = enable_connectivity
+        if enable_connectivity:
+            # per horizon step: 1 λ₂ row + N CLF rows (exactly one family
+            # active per step, branch-masked: fixed shapes)
+            self.m_extra = impc.cbf_horizon * (1 + max_neighbors)
 
     def _cbf_rows_at(self, x, nbr):
         a, b = self.cbf.safety_row(x, nbr)
@@ -362,6 +522,70 @@ class ConnectivityIMPCCBF(_IMPCCBFBase):
     def _neighbor_distance(self, current_pos, neighbor_blob):
         return torch.linalg.vector_norm(
             neighbor_blob[..., :2] - current_pos[:, None, :2], dim=-1)
+
+    def _extra_rows(self, current, neighbor_blob, neighbor_mask,
+                    pred_states, active_k):
+        """λ₂-connectivity / CLF rows lifted through U_basis
+        (ConnectivityMPCCBFQPOperations.cpp:45-87 + the pred variants
+        :112-171): λ₂, eigvec and h = λ₂ − ε come from the CURRENT team;
+        per horizon step k the ego row of the team is replaced by the
+        predicted state, rows are applied at step k via U_basis, and ub is
+        b (connectivity) / −b (CLF). Exactly one family is active per step
+        by the λ₂ branch. No slack coupling (the reference passes a
+        constant slack_value = 0). Row order per lane: the H λ₂ rows, then
+        the H·N CLF rows.
+
+        DELIBERATE sign deviation, as in the JAX package: the reference's
+        clfConstraint (``ConnectivityMPCCBFQPOperations.cpp:75-87``) emits
+        −(a·u) ≤ −b, but V̈ + β₁V̇ + β₂V ≤ 0 requires +(a·u) ≤ −b, the form
+        its OWN live CBF-only generator uses
+        (``ConnectivityQPGenerator.cpp:47-55``). The MPC-level block is
+        commented out in the reference and never ran; mirroring its sign
+        drives robots AWAY from d_desired. The correct sign is emitted.
+        Masked neighbors are deflated out of λ₂ (see
+        ConnectivityCBF.lambda2) and their eigvec entries set to the ego's
+        so their gradient terms vanish identically."""
+        if not self.enable_connectivity:
+            return None
+        cbf = self.cbf
+        H, N = self.impc.cbf_horizon, self.N
+        B, sd = pred_states.shape[0], pred_states.shape[-1]
+
+        x_now = current.stacked
+        team_now = torch.cat([x_now[:, None, :], neighbor_blob], dim=1)      # [B, N+1, 6]
+        node_mask = torch.cat([torch.ones_like(neighbor_mask[:, :1]), neighbor_mask], dim=1)
+        lam2, eigvec = cbf.lambda2(team_now[..., :2], node_mask)             # [B], [B, N+1]
+        h_val = lam2 - cbf.epsilon
+        use_conn = lam2 > self.LAMBDA2_THRESHOLD
+        eigvec = torch.where(node_mask, eigvec, eigvec[:, :1])
+
+        # the team at step k: the ego's predicted state, then the neighbors
+        nbr_k = neighbor_blob[:, None, :, :].expand(B, H, N, sd)
+        team_k = torch.cat([pred_states[:, :, None, :], nbr_k], dim=2)       # [B, H, N+1, 6]
+        per_step = lambda v: v[:, None].expand(B, H, *v.shape[1:]).reshape(B * H, *v.shape[1:])
+        a_c, b_c = vmap(lambda x, team, vec, h: cbf.conn_row(x, team, vec, h, 0))(
+            pred_states.reshape(B * H, sd), team_k.reshape(B * H, N + 1, sd),
+            per_step(eigvec), per_step(h_val))
+        row_c = -torch.einsum("bhd,hdj->bhj", a_c.reshape(B, H, -1), self._U_steps)
+        b_c = b_c.reshape(B, H)
+
+        x_k = pred_states[:, :, None, :].expand(B, H, N, sd)
+        a_v, b_v = vmap(cbf.clf_row)(x_k.reshape(-1, sd), nbr_k.reshape(-1, sd))
+        A_clf = torch.einsum("bhnd,hdj->bhnj", a_v.reshape(B, H, N, -1), self._U_steps)
+        b_clf = -b_v.reshape(B, H, N)
+
+        conn_on = active_k[None, :] & use_conn[:, None]                      # [B, H]
+        clf_on = (active_k[None, :] & ~use_conn[:, None])[:, :, None] & neighbor_mask[:, None, :]
+        b_c = torch.clamp(b_c, -CBF_BOUND_CAP, CBF_BOUND_CAP)
+        b_clf = torch.clamp(b_clf, -CBF_BOUND_CAP, CBF_BOUND_CAP)
+        A = torch.cat([
+            torch.where(conn_on[..., None], row_c, torch.zeros_like(row_c)),
+            torch.where(clf_on[..., None], A_clf, torch.zeros_like(A_clf)).reshape(B, H * N, -1),
+        ], dim=1)
+        ub = torch.cat([torch.where(conn_on, b_c, torch.full_like(b_c, BIG)),
+                        torch.where(clf_on, b_clf, torch.full_like(b_clf, BIG)).reshape(B, H * N)],
+                       dim=1)
+        return [(self._widen(A), torch.full_like(ub, -BIG), ub)]
 
 
 class StructuredIMPC:
@@ -421,10 +645,6 @@ class StructuredIMPC:
                 f"{type(self.cfg).__name__}: StructuredIMPC takes a StructuredConfig, "
                 "an IPMConfig or a HybridIPMConfig")
 
-        hs = list(np.asarray(op.h_samples[: ctrl.impc.cbf_horizon]))
-        self._pos_E = op.tensor(op.pw.eval_matrix(hs, 0))
-        self._vel_E = op.tensor(op.pw.eval_matrix(hs, 1))
-
     def optimize_batch(self, current: State, ref_positions: Tensor,
                        neighbor_blob: Tensor, neighbor_mask: Tensor,
                        warm: Optional[Tensor] = None,
@@ -463,9 +683,7 @@ class StructuredIMPC:
             if it == 0:
                 pred, active = pred0, active0
             else:
-                pos = (coeffs @ self._pos_E.T).reshape(B, H, op.dim)
-                vel = (coeffs @ self._vel_E.T).reshape(B, H, op.dim)
-                pred = torch.cat([pos, vel], dim=-1)
+                pred = ctrl.predicted_states(coeffs)
                 active = torch.ones(H, dtype=torch.bool, device=dev)
             A_d, lb_d, ub_d = ctrl.dynamic_rows(current, neighbor_blob, neighbor_mask,
                                                 pred, active)

@@ -6,8 +6,9 @@ lines 9-27, get_lambda lines 30-51) and ``DoubleIntegratorXYYaw.cpp:9-21``.
 Counterpart of ``mpc_cbf_tpu/models/double_integrator.py``: the numpy
 operators ``A``, ``B``, ``A0`` and ``Lambda`` are carried over as they are.
 They are static, precomputed once in float64 and turned into device tensors
-by the operators that use them. ``step`` and the continuous pair are not on
-the ported slice yet.
+by the operators that use them; ``step`` applies them to a batch of states.
+The continuous pair (``f_cont``, ``g_cont``) is written out in
+``ops/cbf.py`` (``f_drift``) and not repeated here.
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+import torch
+
+from mpc_cbf_torch.types import State
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,3 +84,11 @@ class DoubleIntegrator:
             prev = new
         return pos, vel
 
+    def step(self, state: State, u: torch.Tensor) -> State:
+        """x+ = A x + B u, batched over leading axes.
+
+        (reference applyInput, DoubleIntegrator.cpp:53-63)
+        """
+        d, ts = self.dim, self.ts
+        return State(pos=state.pos + ts * state.vel + (0.5 * ts * ts) * u[..., :d],
+                     vel=state.vel + ts * u[..., :d])

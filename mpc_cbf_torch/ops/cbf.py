@@ -23,9 +23,9 @@ Relative-degree-1 rows (velocity boxes, FovCBF.cpp:543-574):
     a = grad(h) . g
     b = L_f h + h              (linear alpha, gamma=1)
 
-On the ported slice: the FoV safety, border and range rows and the
-connectivity pairwise safety row. The velocity rows, λ₂ (``lambda2``,
-``conn_row``) and the CLF row are not ported yet.
+Row methods take one state (callers batch them with ``torch.func.vmap``);
+``ConnectivityCBF.adjacency`` and ``lambda2`` take leading batch axes
+themselves, since ``torch.linalg.eigh`` is batched.
 """
 
 from __future__ import annotations
@@ -35,11 +35,46 @@ from typing import Callable, Tuple
 
 import numpy as np
 import torch
-from torch.func import grad
+from torch.func import grad, jacrev
 
 from mpc_cbf_torch.types import BIG
 
 Tensor = torch.Tensor
+
+
+def _vel_rows(vmin: np.ndarray, vmax: np.ndarray, x: Tensor) -> Tuple[Tensor, Tensor]:
+    """All 6 velocity barriers: (A [6,3], b [6]); first 3 are max
+    (vmax - v), then 3 min (v - vmin) (FovCBF.cpp:112-147).
+
+    L_f h = 0 for these barriers, so a = -+e_d and b = alpha(h) = h.
+    """
+    v = x[3:6]
+    eye = torch.eye(3, dtype=x.dtype, device=x.device)
+    # python floats, so no tensor is copied from the host per call
+    h_max = torch.stack([float(vmax[d]) - v[d] for d in range(3)])
+    h_min = torch.stack([v[d] - float(vmin[d]) for d in range(3)])
+    return torch.cat([-eye, eye]), torch.cat([h_max, h_min])
+
+
+#: most matrices one torch.linalg.eigh call is given. cuSOLVER's batched
+#: syev (torch 2.11, CUDA 12.8, H100) answers CUSOLVER_STATUS_INVALID_VALUE
+#: for 32 767 matrices and more, of any size tried (4, 8, 32); 16 384 work
+#: (scripts/eigh_batch_limit.py).
+EIGH_MAX_BATCH = 16384
+
+
+def batched_eigh(L: Tensor) -> Tuple[Tensor, Tensor]:
+    """torch.linalg.eigh of L [..., n, n], in slices of EIGH_MAX_BATCH. Each
+    call reads the library's error flag back: one wait for the device per
+    slice (there is no eigh that skips the check)."""
+    n = L.shape[-1]
+    flat = L.reshape(-1, n, n)
+    if flat.shape[0] <= EIGH_MAX_BATCH:
+        return torch.linalg.eigh(L)
+    vals, vecs = zip(*(torch.linalg.eigh(part) for part in flat.split(EIGH_MAX_BATCH)))
+    return (torch.cat(vals).reshape(*L.shape[:-2], n),
+            torch.cat(vecs).reshape(L.shape))
+
 
 # Continuous-time dynamics ---------------------------------------------------
 
@@ -196,6 +231,10 @@ class FovCBF:
             return torch.zeros_like(x[:3]), torch.full_like(x[0], BIG)
         return rel_deg2_row(self._h_border(target_xy, -1), self.alpha, x)
 
+    def vel_rows(self, x: Tensor):
+        """The 6 velocity barriers of one state: (A [6,3], b [6])."""
+        return _vel_rows(self.vmin, self.vmax, x)
+
 
 # ---------------------------------------------------------------------------
 # Connectivity CBF family (ConnectivityCBF.cpp)
@@ -203,11 +242,10 @@ class FovCBF:
 
 
 class ConnectivityCBF:
-    """Pairwise safety barrier of ConnectivityCBF(min_dist, max_dist, vmin,
-    vmax) (ConnectivityCBF.cpp:42-148). gamma=5, epsilon=0.1.
+    """Pairwise safety + lambda2-connectivity + CLF + velocity barriers.
 
-    Only ``safety_row`` is ported; the parameters of the λ₂ and CLF
-    families are kept so the constructor matches the JAX package's.
+    Mirrors ConnectivityCBF(min_dist, max_dist, vmin, vmax)
+    (ConnectivityCBF.cpp:42-148). gamma=5, epsilon=0.1.
     """
 
     def __init__(self, min_dist: float, max_dist: float, vmin, vmax,
@@ -224,6 +262,12 @@ class ConnectivityCBF:
         self.alpha_safety = alpha_cubic(gamma)
         self.alpha_conn = alpha_linear(gamma)
 
+    @property
+    def sigma(self) -> float:
+        """dmax^4 / ln 2 (ConnectivityCBF.cpp:381-383)."""
+        return self.dmax**4 / math.log(2.0)
+
+    # pairwise safety -------------------------------------------------------
     def safety_row(self, x: Tensor, neighbor_state: Tensor):
         """h = ||p - p_n||^2 - dmin^2 vs a (>=5,) neighbor state
         [px_n, py_n, ..., vx_n, vy_n] laid out like the ego state.
@@ -248,3 +292,130 @@ class ConnectivityCBF:
         b = lf2h + lf_alpha + alpha(lfh + alpha(h))
         a = torch.stack([2.0 * dx, 2.0 * dy, torch.zeros_like(dx)])
         return a, b
+
+    # CLF -------------------------------------------------------------------
+    def clf_row(self, x: Tensor, neighbor_state: Tensor):
+        """V = (||dp|| - d_desired)^2; row (a, b) with Bc = L_f^2 V +
+        beta1 L_f V + beta2 V (ConnectivityCBF.cpp:200-245).
+
+        Note: the generator uses this as  a . u <= -b  ("<= -getCLFBound",
+        ConnectivityQPGenerator.cpp:44-59), callers handle the sign. At
+        zero distance (the ego against itself) the row is NaN; callers mask
+        it with ``torch.where`` on the value.
+        """
+        d_des = self.d_desired
+
+        def V_fn(xx):
+            dx = xx[0] - neighbor_state[0]
+            dy = xx[1] - neighbor_state[1]
+            dist = torch.sqrt(dx * dx + dy * dy)
+            return (dist - d_des) ** 2
+
+        def lfV_fn(xx):
+            g = grad(V_fn)(xx)
+            return g[0] * xx[3] + g[1] * xx[4]
+
+        V = V_fn(x)
+        lfV = lfV_fn(x)
+        grad_lfV = grad(lfV_fn)(x)
+        # reference Lf2V uses only the position partials times velocity
+        lf2V = grad_lfV[0] * x[3] + grad_lfV[1] * x[4]
+        a = torch.stack([grad_lfV[3], grad_lfV[4], torch.zeros_like(grad_lfV[3])])
+        b = lf2V + self.beta1 * lfV + self.beta2 * V
+        return a, b
+
+    # lambda2 connectivity --------------------------------------------------
+    def adjacency(self, positions: Tensor) -> Tensor:
+        """Weighted adjacency A_ij = exp((Rs^2 - d_ij^2)^2 / sigma) - 1 for
+        d_ij <= Rs else 0 (ConnectivityCBF.cpp:390-409). positions [..., N, 2]."""
+        diff = positions[..., :, None, :] - positions[..., None, :, :]
+        d2 = torch.sum(diff * diff, dim=-1)
+        w = torch.exp((self.dmax**2 - d2) ** 2 / self.sigma) - 1.0
+        n = positions.shape[-2]
+        off_diag = ~torch.eye(n, dtype=torch.bool, device=positions.device)
+        return torch.where((d2 <= self.dmax**2) & off_diag, w, torch.zeros_like(w))
+
+    def lambda2(self, positions: Tensor, node_mask: Tensor = None) -> Tuple[Tensor, Tensor]:
+        """Second-smallest Laplacian eigenvalue [...] and its unit eigenvector
+        [..., N] (ConnectivityCBF.cpp:390-424). positions [..., N, 2].
+
+        The eigenvector is defined up to its sign, and up to a rotation of
+        the eigenspace where lambda2 is repeated; ``conn_row`` uses it only
+        through (v_i - v_j)^2, so the sign drops out.
+
+        node_mask [..., N] (optional): absent nodes are DEFLATED out. Their
+        adjacency rows/cols are zeroed and a large diagonal shift pushes
+        their (otherwise zero) eigenvalues above the real spectrum, so
+        vals[1] is the lambda2 of the present-node subgraph with fixed
+        shapes. The shift (1e3) dominates the true spectrum: edge weights
+        are bounded by exp(Rs^4/sigma) - 1 = 1, so lambda_max <= 2N for any
+        sane N. The reference has no masking (fixed team size)."""
+        A = self.adjacency(positions)
+        if node_mask is not None:
+            pair = node_mask[..., :, None] & node_mask[..., None, :]
+            A = torch.where(pair, A, torch.zeros_like(A))
+        L = torch.diag_embed(torch.sum(A, dim=-1)) - A
+        if node_mask is not None:
+            L = L + 1e3 * torch.diag_embed((~node_mask).to(L.dtype))
+        vals, vecs = batched_eigh(L)
+        v = vecs[..., :, 1]
+        v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+        return vals[..., 1], v
+
+    def _grad_h_agent(self, p_i: Tensor, positions: Tensor, eigvec: Tensor,
+                      is_self: Tensor) -> Tensor:
+        """d lambda2 / d p_i via the eigenvector formula (12):
+        sum_j dA_ij/dp_i * (v_i - v_j)^2, with NO range cutoff, matching
+        compute_full_grad_h (ConnectivityCBF.cpp:426-469) which omits the
+        cutoff present in the numeric adjacency.
+
+        p_i (2,) stands for robot i's position (the point differentiated
+        at); positions [N, 2]; is_self [N] bool marks robot i, whose own
+        term is masked out, so positions needs no write. Returns (2,)."""
+        diff = p_i[None, :] - positions  # [N, 2]
+        d2 = torch.sum(diff * diff, dim=-1)
+        rs2 = self.dmax**2
+        expo = torch.exp((rs2 - d2) ** 2 / self.sigma)  # = A_ij + 1
+        # dA_ij/dx_i = -4 (A_ij + 1) (Rs^2 - d^2)/sigma * dx
+        coef = -4.0 * expo * (rs2 - d2) / self.sigma
+        v_self = torch.sum(torch.where(is_self, eigvec, torch.zeros_like(eigvec)))
+        vdiff2 = (v_self - eigvec) ** 2
+        contrib = (coef * vdiff2)[:, None] * diff  # [N, 2]
+        return torch.sum(torch.where(is_self[:, None], torch.zeros_like(contrib), contrib),
+                         dim=0)
+
+    def conn_row(self, x: Tensor, robot_states: Tensor, eigvec: Tensor, h_val: Tensor,
+                 self_idx) -> Tuple[Tensor, Tensor]:
+        """(a, b) for h = lambda2 - epsilon at robot self_idx (an int or a
+        0-d integer tensor).
+
+        robot_states [N, 6]; eigvec [N] (held constant in differentiation,
+        as in the reference where eigenvec_i are plain symbols);
+        h_val is the numeric lambda2 - epsilon substituted at call time
+        (ConnectivityCBF.cpp:471-552).
+
+        b = L_f^2 h + gamma*L_f h + gamma*(L_f h + gamma*h_val)
+        with L_f h = grad_i . v_i and L_f^2 h = v_i' Hess_i v_i where the
+        Hessian is taken wrt this robot's own position only.
+        """
+        positions = robot_states[:, :2]
+        is_self = torch.arange(positions.shape[0], device=positions.device) == self_idx
+
+        def grad_fn(p_i):
+            return self._grad_h_agent(p_i, positions, eigvec, is_self)
+
+        p_self = torch.sum(torch.where(is_self[:, None], positions,
+                                       torch.zeros_like(positions)), dim=0)
+        grad_i = grad_fn(p_self)  # (2,)
+        hess_i = jacrev(grad_fn)(p_self)  # (2, 2)
+        v_self = x[3:5]
+        lfh = torch.dot(grad_i, v_self)
+        lf2h = torch.dot(v_self, hess_i @ v_self)
+        g5 = self.alpha_conn
+        b = lf2h + g5(lfh) + g5(lfh + g5(h_val))
+        a = torch.cat([grad_i, torch.zeros_like(grad_i[:1])])
+        return a, b
+
+    def vel_rows(self, x: Tensor):
+        """Same construction as FovCBF.vel_rows (ConnectivityCBF.cpp:105-141)."""
+        return _vel_rows(self.vmin, self.vmax, x)

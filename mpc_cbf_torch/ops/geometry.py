@@ -1,6 +1,6 @@
-"""Geometry primitives on the ported slices: separating hyperplanes,
-confidence-ellipse distances and yaw wrapping (counterpart of
-``mpc_cbf_tpu/ops/geometry.py`` lines 29-120 and 139-150).
+"""Geometry primitives: separating hyperplanes, confidence-ellipse
+distances, FOV tests, yaw wrapping and control rotations (counterpart of
+``mpc_cbf_tpu/ops/geometry.py``).
 
 Reference parity:
 - Voronoi hyperplane: ``separating_hyperplanes/src/Voronoi.cpp:10-29``
@@ -9,11 +9,12 @@ Reference parity:
 - distance to 90% confidence ellipse:
   ``mpc_cbf/src/controller/FovBezierIMPCCBF.cpp:226-291`` /
   ``math/src/Geometry.cpp:8-57`` (closestPointOnEllipse)
-
+- insideFOV: ``math/src/Geometry.cpp:60-74``
 - yaw wrapping: ``math/src/Geometry.cpp:76-86``, ``Geometry.h:77-104``
+- control rotations: ``Geometry.h:41-66``
 
 Branch-free (``torch.where``), operating on the last axis and broadcasting
-over leading axes. FOV tests and control rotations are not ported yet.
+over leading axes.
 """
 
 from __future__ import annotations
@@ -119,6 +120,24 @@ def distance_to_ellipse(robot_xy: torch.Tensor, mean_xy: torch.Tensor,
     return torch.where(torch.isinf(cov2[..., 0, 0]), torch.full_like(signed, -5.0), signed)
 
 
+def inside_fov(robot_pose: torch.Tensor, target_xy: torch.Tensor, fov: float,
+               rng: float) -> torch.Tensor:
+    """Bool: target within the robot's field-of-view wedge and range.
+
+    robot_pose [..., 3] = [x, y, yaw]. Matches math::insideFOV
+    (Geometry.cpp:60-74).
+    """
+    yaw = robot_pose[..., 2]
+    dx = target_xy[..., 0] - robot_pose[..., 0]
+    dy = target_xy[..., 1] - robot_pose[..., 1]
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    cx = c * dx + s * dy
+    cy = -s * dx + c * dy
+    dist = torch.sqrt(cx * cx + cy * cy)
+    angle = torch.abs(torch.atan2(cy, cx))
+    return (angle <= 0.5 * fov) & (dist <= rng)
+
+
 def convert_yaw_in_range(yaw: torch.Tensor) -> torch.Tensor:
     """Wrap yaw into (-pi, pi] (Geometry.cpp:76-86)."""
     return torch.where(yaw > math.pi, yaw - 2 * math.pi,
@@ -132,3 +151,16 @@ def convert_to_closest_yaw(current_yaw: torch.Tensor, goal_yaw: torch.Tensor) ->
     cands = torch.stack([goal_yaw, goal_yaw + 2 * math.pi, goal_yaw - 2 * math.pi], dim=-1)
     idx = torch.argmin(torch.abs(cands - current_yaw[..., None]), dim=-1)
     return torch.take_along_dim(cands, idx[..., None], dim=-1)[..., 0]
+
+
+def rotate_control_to_body(u: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:
+    """Rotate [ax, ay, *] world->body about z (Geometry.h:41-52)."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    ux = c * u[..., 0] + s * u[..., 1]
+    uy = -s * u[..., 0] + c * u[..., 1]
+    return torch.cat([torch.stack([ux, uy], dim=-1), u[..., 2:]], dim=-1)
+
+
+def rotate_control_to_world(u: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:
+    """Inverse of rotate_control_to_body (Geometry.h:55-66)."""
+    return rotate_control_to_body(u, -yaw)

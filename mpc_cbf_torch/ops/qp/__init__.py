@@ -1,3 +1,5 @@
+from mpc_cbf_torch.ops.qp.admm import ADMMConfig, solve_batch  # noqa: F401
+from mpc_cbf_torch.ops.qp.canon import box_rows, np_pad_rows, pad_rows, stack_qp  # noqa: F401
 from mpc_cbf_torch.ops.qp.structured import (  # noqa: F401
     StructuredConfig,
     StructuredQPOperator,

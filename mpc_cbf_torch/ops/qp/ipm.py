@@ -100,8 +100,14 @@ def chol_factor(H: Tensor) -> Tuple[Tensor, Tensor]:
 
 
 def chol_solve(L: Tensor, rhs: Tensor) -> Tensor:
-    """Solve (L Lᵀ) x = rhs for rhs [B, k]."""
-    return torch.cholesky_solve(rhs[..., None], L)[..., 0]
+    """Solve (L Lᵀ) x = rhs for rhs [B, k]: a forward and a backward batched
+    triangular solve. Not ``torch.cholesky_solve``: on the card that is
+    MAGMA's batched potrs, which takes its workspace with cudaMalloc, frees
+    it and synchronises the stream in every call, so a solver loop that
+    calls it waits for the device in every iteration
+    (``scripts/dense_admm_parts.py`` times both on the card)."""
+    y = torch.linalg.solve_triangular(L, rhs[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
 
 
 def _dtype_of(name: str) -> torch.dtype:

@@ -1,4 +1,7 @@
 from mpc_cbf_torch.parallel.sim import (  # noqa: F401
+    BezierMPCSim,
+    CBFOnlySim,
+    CBFSimResult,
     MultiAgentSim,
     SimResult,
 )

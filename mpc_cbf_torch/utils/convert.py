@@ -11,7 +11,11 @@ start to both packages:
   the IPM family, which keeps none);
 - ``ipm_state_from_numpy`` / ``ipm_state_to_numpy``: the interior state
   (v, t, zl, zu) of an ``IPMSolution``, both ways, so one package's f32
-  entry can feed the other's f64 tail.
+  entry can feed the other's f64 tail;
+- ``qp_batch_from_numpy`` / ``qp_solution_to_numpy``: a dense ``QPBatch``
+  in, a ``QPSolution`` out (z and y also serve as the other package's warm
+  start);
+- ``pf_state_from_numpy`` / ``pf_state_to_numpy``: a particle bank.
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mpc_cbf_torch.types import State
+from mpc_cbf_torch.types import QPBatch, QPSolution, State
 from mpc_cbf_torch.controllers.mpc_cbf import IMPCResult
+from mpc_cbf_torch.estimation.particle_filter import PFState
 from mpc_cbf_torch.ops.qp.structured import StructuredQPOperator
 
 
@@ -99,3 +104,22 @@ def ipm_state_to_numpy(state) -> Tuple[np.ndarray, ...]:
     """The port's ``IPMSolution.state`` as numpy, in the form the JAX
     package's ``StructuredIPM.solve(..., state0=...)`` takes."""
     return tuple(_numpy(a) for a in state)
+
+
+def qp_batch_from_numpy(P, q, A, lb, ub, *, device, dtype) -> QPBatch:
+    """A dense QP batch from the five arrays of the JAX package's QPBatch."""
+    return QPBatch(*(to_tensor(a, device=device, dtype=dtype) for a in (P, q, A, lb, ub)))
+
+
+def qp_solution_to_numpy(sol: QPSolution) -> Tuple[np.ndarray, ...]:
+    """(z, y, pri_res, dua_res, converged) as numpy."""
+    return tuple(_numpy(a) for a in sol)
+
+
+def pf_state_from_numpy(particles, weights, *, device, dtype) -> PFState:
+    return PFState(particles=to_tensor(particles, device=device, dtype=dtype),
+                   weights=to_tensor(weights, device=device, dtype=dtype))
+
+
+def pf_state_to_numpy(st: PFState) -> Tuple[np.ndarray, np.ndarray]:
+    return _numpy(st.particles), _numpy(st.weights)

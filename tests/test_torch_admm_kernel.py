@@ -31,6 +31,7 @@ from mpc_cbf_torch.types import State
 import torch_parity_cases as cases
 
 FOV, CONN, SWARM_CONN, SWARM_FOV = (43, 127, 84), (36, 126, 6), (36, 126, 62), (67, 151, 372)
+CONN_LAMBDA2 = (36, 126, 14)         # 4-robot connectivity with the λ₂/CLF rows
 KW = dict(iters=40, sigma=1e-6, alpha=1.6)
 
 
@@ -38,7 +39,8 @@ def _inputs(B, seed, shape=FOV):
     return random_phase_inputs(np.random.default_rng(seed), B, *shape)
 
 
-@pytest.mark.parametrize("B,shape", [(5, FOV), (3, FOV), (4, CONN), (3, SWARM_CONN)])
+@pytest.mark.parametrize("B,shape", [(5, FOV), (3, FOV), (4, CONN), (3, SWARM_CONN),
+                                     (6, CONN_LAMBDA2)])
 def test_twin_matches_pallas_kernel(B, shape):
     import jax.numpy as jnp
     from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
@@ -94,6 +96,8 @@ def _need_gpu():
     (FOV, 3, "tiled"),               # fewer lanes than a block holds
     (CONN, 1001, "tiled"),
     (CONN, 3, "tiled"),
+    (CONN_LAMBDA2, 1001, "tiled"),
+    (CONN_LAMBDA2, 3, "tiled"),
     (SWARM_CONN, 64, "resident"),    # no instantiation: operands in shared memory
     (SWARM_FOV, 16, "streamed"),     # beyond a block's shared memory: A_d, WK from device memory
 ])
@@ -131,7 +135,7 @@ def test_generic_kernels_take_the_fov_shapes_on_gpu(variant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [FOV, CONN])
+@pytest.mark.parametrize("shape", [FOV, CONN, CONN_LAMBDA2])
 def test_nan_lane_leaves_its_block_untouched_on_gpu(shape):
     """The tiled kernel runs several lanes in one block; a lane that goes
     NaN changes no bit of any other lane."""

@@ -178,10 +178,15 @@ def test_add_random_noise_uses_the_generator():
 
 
 def test_dense_path_is_not_ported():
+    """The name dates from when structured=False raised; the dense path is
+    ported now, so the same call must run: every agent's own QP through the
+    dense ADMM (tests/test_torch_cbf_sims.py holds it against the JAX
+    package)."""
     _, ctrl = _controllers("connectivity", 4)
     init, goals = _start(4)
-    with pytest.raises(NotImplementedError):
-        MultiAgentSim(ctrl, 4).control_step(init, goals)
+    coeffs, success, flyable = MultiAgentSim(ctrl, 4).control_step(init, goals)
+    assert coeffs.shape == (4, ctrl.op.n_dec) and success.shape == flyable.shape == (4,)
+    assert bool(torch.isfinite(coeffs[flyable]).all()) and bool(flyable.any())
 
 
 def test_default_solver_is_the_jax_default_admm_budget():

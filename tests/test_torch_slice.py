@@ -99,7 +99,9 @@ def _assert_results_match(res_t, res_j):
 
 
 @pytest.mark.parametrize("mode,batch,dtype", [("fov", 6, np.float64),
-                                              ("connectivity", 5, np.float32)])
+                                              ("connectivity", 5, np.float32),
+                                              ("connectivity_lambda2", 5, np.float64),
+                                              ("connectivity_lambda2", 24, np.float32)])
 def test_optimize_batch_matches_jax(mode, batch, dtype):
     inputs = _inputs(mode, batch, seed=0, dtype=dtype)
     simpc_j, res_j = _run_jax(mode, inputs)

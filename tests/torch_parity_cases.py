@@ -41,7 +41,8 @@ def _common(rng, batch, blob):
 
 def jax_controller(mode):
     """The JAX package's fov (8-robot, slack) or connectivity (4-robot)
-    controller as bench.py builds it."""
+    controller as bench.py builds it; "connectivity_lambda2" adds the λ₂/CLF
+    rows (enable_connectivity=True)."""
     import jax.numpy as jnp
     from mpc_cbf_tpu.ops.cbf import ConnectivityCBF, FovCBF
     from mpc_cbf_tpu.controllers import (
@@ -54,7 +55,8 @@ def jax_controller(mode):
         cbf = FovCBF(FOV_BETA, 0.3, 6.0, jnp.asarray(mpc.v_min), jnp.asarray(mpc.v_max))
         return FovIMPCCBF(op, cbf, IMPCParams(slack_mode=True), 7, box_half_extents=BOX)
     cbf = ConnectivityCBF(1.0, 4.0, jnp.asarray(mpc.v_min), jnp.asarray(mpc.v_max))
-    return ConnectivityIMPCCBF(op, cbf, IMPCParams(), 3)
+    return ConnectivityIMPCCBF(op, cbf, IMPCParams(), 3,
+                               enable_connectivity=mode == "connectivity_lambda2")
 
 
 def torch_controller(mode, device, dtype):
@@ -70,4 +72,5 @@ def torch_controller(mode, device, dtype):
         cbf = FovCBF(FOV_BETA, 0.3, 6.0, mpc.v_min, mpc.v_max)
         return FovIMPCCBF(op, cbf, IMPCParams(slack_mode=True), 7, box_half_extents=BOX)
     cbf = ConnectivityCBF(1.0, 4.0, mpc.v_min, mpc.v_max)
-    return ConnectivityIMPCCBF(op, cbf, IMPCParams(), 3)
+    return ConnectivityIMPCCBF(op, cbf, IMPCParams(), 3,
+                               enable_connectivity=mode == "connectivity_lambda2")
