@@ -8,22 +8,31 @@ sm_90a: an H100). It
 2. builds the CUDA kernels from csrc/ into build/kernels/ (one nvcc per
    source, started together) and times it;
 3. holds every variant of the fused ADMM kernel against its plain PyTorch
-   twin at 40 iterations to rtol = atol = 2e-4: tiled at the fov shapes
-   (1001 lanes: a ragged last block) and the connectivity shapes (1001),
-   resident at the 32-agent connectivity shapes (36, 126, 62) and streamed
-   at the 32-agent fov shapes (n = 67, m_d = 372) on 64 lanes, the two
-   generic kernels launched by name at the fov shapes, a batch smaller than
-   a block (3 lanes), and a NaN lane that must leave every other lane
-   bitwise untouched (the inputs carry inactive rows with rho = 1e-12 and
-   bounds of +-1e20);
+   twin at 40 iterations to rtol = atol = 2e-4, each through the wrapper at
+   a shape that takes it: tiled at the fov, connectivity and λ₂/CLF
+   connectivity shapes (1001 lanes: a ragged last block; 3 lanes: fewer
+   than a block holds), folded at the 32-agent connectivity shapes (36,
+   126, 62) on 1001 and 3 lanes and the 32-agent fov shapes (67, 151, 372)
+   on 64 and 3 lanes and, on 64 lanes, for the 550 iterations of the step's
+   longest phase, resident at the shapes (38, 128, 4) and the 3 lanes of
+   run_sim --controller connectivity on a 3-robot team (step 17), streamed
+   at the 24-agent fov shapes (59, 143, 276); resident and streamed also
+   launched by name at the fov shapes and at the 32-agent shapes they ran
+   before those got a kernel of their own; and a NaN lane
+   that must leave every other lane bitwise untouched at each shape whose
+   kernel shares a block or an SM between lanes (the inputs carry inactive
+   rows with rho = 1e-12 and bounds of +-1e20);
 4. times kernel and twin for each rho phase length of a control step (150 +
-   50 cold, 32 + 32 warm) at 8192 fov and 32768 connectivity lanes, with
-   the first version beside the tiled kernel, and at the lanes and phase
-   lengths a launch of step 7 gets: the resident kernel at 4096 lanes (4 x
-   50 iterations), the streamed kernel at one lane chunk of 2048 (550 + 50
-   + 150 + 50); prints each time beside its bound (the slowest of the
-   float32 operations, the float64 operations and the bytes, from the
-   shapes and the card's peaks);
+   50 cold, 32 + 32 warm) at 8192 fov and 32768 connectivity lanes, and at
+   the lanes and phase lengths a launch of steps 7 and 7b gets: the folded
+   kernel at 4096 lanes (4 x 50 iterations) and at one lane chunk of 2048
+   (550 + 50 + 150 + 50), resident at the 3 lanes of one run_sim team (150
+   + 50 + 150 + 50), streamed at 768; beside each compiled kernel the kernel
+   its shape ran before (resident; streamed for the 32-agent fov shape),
+   which must be the slower one; prints each time beside its bound (the
+   slowest of the float32 operations, the float64 operations and the bytes,
+   from the shapes and the card's peaks; the operations are the fewest a
+   known form of the loop needs, see bound());
 5. drives the main path (StructuredIMPC(FovIMPCCBF) with the structured
    ADMM (iters 200, tail 64) on 8192 lanes of bench.py's fov recipe),
    checks that it launched the tiled kernel 4 times per call and that every
@@ -34,10 +43,20 @@ sm_90a: an H100). It
    launches, usable >= 0.99);
 7. runs one 32-agent control step of benchmarks/swarm.py's recipe (128
    scenarios x 32 agents = 4096 lanes) through the ADMM: connectivity (100
-   iterations; the resident kernel) and fov (600, tail 200, neighbours
-   masked to the sensing range; the streamed kernel with lane_chunk auto =
-   2 chunks, 4 launches each): finite flyable lanes, time, usable rate and
-   peak device memory;
+   iterations; the folded kernel, 4 launches, usable >= 0.99) and fov (600,
+   tail 200, neighbours masked to the sensing range; the folded kernel with
+   lane_chunk auto = 2 chunks, 8 launches): finite flyable lanes, time,
+   usable rate (>= 0.97) and peak device memory; the fov step also with a
+   sync around each stage, under torch.profiler, and through the plain
+   loop (usable rates within 0.01, success flags equal on 99 % of lanes);
+   then the same two steps through the f32 IPM (IPM_F32_ENTRY, the
+   reference's default swarm solver), one call each beside the ADMM's
+   numbers;
+7b. runs one fov step of benchmarks/swarm.py's recipe at another team size
+   (its second argument): 32 rings of 24 agents, a shape without a compiled
+   kernel and beyond a block's shared memory, so that the streamed kernel
+   stays driven through the wrapper (4 launches); no shipped configuration
+   reaches that kernel;
 8. holds the f64 IPM on the card against the same solve on the host CPU
    (512 fov lanes: converged flags, z to 1e-3);
 9. drives the f32 Mehrotra IPM (IPM_F32_ENTRY, bench.py's default solver)
@@ -81,7 +100,9 @@ sm_90a: an H100). It
     controllers, connectivity --enable-connectivity and cbf-fov --pf
     (--device defaults to cuda): success and solver_success_rate >= 0.95 as
     the JAX package's runner gives on a CPU, ms per replan step of one team
-    against the 100 ms budget.
+    against the 100 ms budget; --controller connectivity must launch the
+    resident kernel 4 times a step (320 launches: the resident row of the
+    kernels record).
 Any failure raises (exit code 1). The last two lines are a JSON record of
 the kernels and {"ok": true, "device": {...}}. Without a GPU, or without
 the repository beside it, it exits non-zero and prints no result.
@@ -91,37 +112,45 @@ loop flies 10 steps (60 at first, then 20), the fov IPM times 3 calls, not
 call each, not three.
 
 Expected on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md; the wall times
-follow the host): every kernel variant within 3.4e-5 of its twin; one fov
-control step's four phases at 8192 lanes 16.1 ms in the tiled kernel
-(bound 1.40 ms, 8.7 % of it reached; first version 39.2-39.7 ms, twin
-144-272 ms); connectivity at 32768 lanes 19.6 ms (bound 2.51 ms, 12.8 %;
-first version 84.6-85.1 ms); the 4-robot step with the λ₂/CLF rows at
-32768 lanes 20.8 ms (bound 2.73 ms, 13.2 %; first version 89.0 ms, twin
-181-207 ms); the resident kernel 10.2 ms for the 32-agent connectivity
-step's four launches (bound 0.39 ms), the streamed kernel 593-597 ms for
-one 2048-lane chunk of the 32-agent fov step (bound 4.65 ms; its twin
-532-604 ms); fov ADMM usable 0.7097 (plain route 0.7095), 150-415 ms per
-call; connectivity ADMM usable 0.9933, 26-31 ms; 32-agent connectivity
-usable 1.0000, 35-70 ms; 32-agent fov usable 0.9888, 1.8-2.4 s, peak 6.35
-GiB; λ₂ connectivity usable 0.5292 on bench.py's random teams (0.98 where
-the λ₂ row is on, 0.29 under the hard CLF rows; the JAX package gives the
-same flags), 47-55 ms a call; the f64 IPM on the card within 2.5e-4 of the
-host CPU; fov f32 IPM usable 0.9974, 500-1400 ms per call at chunk 2048
-and 220-430 ms at chunk 0, ~46k kernel launches per call; connectivity f32
-IPM usable 1.0000, 1.9-4.2 s; HYBRID_PROD certified 0.987-0.989, 0.74-1.53
-s; closed loop 0.6-1.3 s per step, solver success 0.99, instance_success
-0.0 (the JAX package flies these random instances to the same places); the
-dense ADMM ~10 250 launches a solve, 240-245 ms on the fov flagship QPs
-(converged 0.17, primal residual <= 0.05: 0.47) and 116-220 ms on the
-cbf-fov QPs (converged 0.42); the dense IMPC step usable 0.726, 0.54-0.62
-s; CBF-only steps at 32768 lanes 133-256 ms (223-336 with the particle
-filter, peak 4.24 GiB), solver success 0.06 (cbf-fov) and 0.62
+follow the host): every kernel variant within 3.4e-5 of its twin at 40
+iterations, the folded kernel within 6.2e-5 after 550; one fov control
+step's four phases at 8192 lanes 16.0-16.2 ms in the tiled kernel (bound
+1.17 ms, 7.3 % of it reached; resident 39.2-39.7 ms, twin 144-272 ms);
+connectivity at 32768 lanes 19.5-19.7 ms (bound 2.45 ms, 12.6 %; resident
+84.6-85.3 ms); the 4-robot step with the λ₂/CLF rows at 32768 lanes 20.7 ms
+(bound 2.60 ms, 12.6 %; resident 88.7 ms); the folded kernel 3.33-3.45 ms for
+the 32-agent connectivity step's four launches at 4096 lanes (bound 0.33 ms,
+9.6-9.9 %; resident 10.3 ms) and 29.5-30.7 ms for one 2048-lane chunk of the
+32-agent fov step (bound 3.43 ms, 11.2-11.6 %; streamed 586.5-591.4 ms, its
+twin 627-787 ms); resident 1.38-1.42 ms for the four launches of one run_sim
+connectivity step on 3 lanes (bound 3.6e-4 ms: three blocks on a 132-SM
+card), streamed 118.9-120.6 ms at the 24-agent fov shapes on 768 lanes (bound
+0.91 ms, 0.8 %); fov ADMM usable 0.7097 (plain route 0.7095), 150-415 ms
+per call; connectivity ADMM usable 0.9933, 26-31 ms; 32-agent connectivity
+usable 1.0000, 36-60 ms (f32 IPM: 1.0000, 423-625 ms); 32-agent fov usable
+0.9900 with the kernel and with the plain loop, 0.82-1.24 s (1.8-2.4 s with
+the streamed kernel), peak 6.35 GiB (f32 IPM: usable 1.0000, 494-903 ms,
+peak 1.39 GiB); 24-agent fov usable 0.9935, 299-441 ms; λ₂ connectivity
+usable 0.5292 on bench.py's random teams
+(0.98 where the λ₂ row is on, 0.29 under the hard CLF rows; the JAX package
+gives the same flags), 47-66 ms a call; the f64 IPM on the card within
+2.5e-4 of the host CPU; fov f32 IPM usable 0.9974, 500-1400 ms per call at
+chunk 2048 and 220-430 ms at chunk 0, ~46k kernel launches per call;
+connectivity f32 IPM usable 1.0000, 1.9-4.2 s; HYBRID_PROD certified
+0.987-0.989, 0.74-1.53 s; closed loop 0.6-1.3 s per step, solver success
+0.99, instance_success 0.0 (the JAX package flies these random instances to
+the same places); the dense ADMM ~10 250 launches a solve, 240-245 ms on the
+fov flagship QPs (converged 0.17, primal residual <= 0.05: 0.47) and 116-220
+ms on the cbf-fov QPs (converged 0.42); the dense IMPC step usable 0.726,
+0.54-0.62 s; CBF-only steps at 32768 lanes 133-256 ms (223-336 with the
+particle filter, peak 4.24 GiB), solver success 0.06 (cbf-fov) and 0.62
 (cbf-connectivity) on the 8-robot rings, as in the JAX package;
 BezierMPCSim 179-227 ms a step, all scenarios succeed; the command line
 flies all eight variants to success on 3r/rotate, 11-52 ms per replan step
 through the structured ADMM, 119-363 ms through the dense ADMM and the f32
-IPM (over the 100 ms budget). 4 to 7 minutes in all; every phase logs its
-wall seconds.
+IPM (over the 100 ms budget). 4 to 7 minutes in all (353-432 s in the runs
+with the 32-agent and team phases above); every phase logs its wall
+seconds.
 """
 
 from __future__ import annotations
@@ -159,6 +188,10 @@ F32 = torch.float32
 FOV_SHAPES = dict(n=43, m_s=127, m_d=84)      # fov flagship: 36 + 7 slack columns
 CONN_SHAPES = dict(n=36, m_s=126, m_d=6)      # 4-robot connectivity
 SWARM_CONN_SHAPES = dict(n=36, m_s=126, m_d=62)   # 32-agent connectivity
+SWARM_FOV_SHAPES = dict(n=67, m_s=151, m_d=372)   # 32-agent fov: 36 + 31 slack columns
+# shapes without a compiled kernel: they take the two kernels of any shape
+RUN_SIM_CONN_SHAPES = dict(n=38, m_s=128, m_d=4)  # run_sim connectivity, 3 robots: resident
+TEAM24_FOV_SHAPES = dict(n=59, m_s=143, m_d=276)  # 24-agent fov: streamed
 LAMBDA2_SHAPES = dict(n=36, m_s=126, m_d=14)      # 4-robot connectivity with the λ₂/CLF rows
 BASE_CONFIG = "configs/base_config.json"
 TASK_3R = "configs/baseline/3r/rotate.json"
@@ -167,6 +200,7 @@ RTOL = ATOL = 2e-4                           # tests/test_pallas_admm.py:53-55
 KERNEL = fused_admm.structured_admm_iterations
 KW = dict(sigma=1e-6, alpha=1.6)
 SOURCES = {"tiled": "mpc_cbf_torch/csrc/structured_admm_tiled.cu",
+           "folded": "mpc_cbf_torch/csrc/structured_admm_folded.cu",
            "resident": "mpc_cbf_torch/csrc/structured_admm.cu",
            "streamed": "mpc_cbf_torch/csrc/structured_admm.cu"}
 # the card's peaks, NVIDIA's H100 SXM data sheet at 700 W: float32 outside the
@@ -175,6 +209,7 @@ SOURCES = {"tiled": "mpc_cbf_torch/csrc/structured_admm_tiled.cu",
 PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 67e12, 3.35e12
 SWARM_PHASES = {"connectivity": (50, 50, 50, 50),     # StructuredConfig(iters=100), cold and warm
                 "fov": (550, 50, 150, 50)}            # iters=600, iters_tail=200
+RUN_SIM_PHASES = (150, 50, 150, 50)                   # StructuredConfig(), run_sim's ADMM
 
 
 def reset_counts() -> None:
@@ -184,16 +219,23 @@ def reset_counts() -> None:
 
 def bound(B: int, n: int, m_s: int, m_d: int, phases) -> tuple:
     """(ms, "bytes" or "operations"): the least time the card could take for
-    one launch per entry of ``phases`` (iterations each) on B lanes. Per lane
-    and iteration the loop does [A_s; A_d]'r, A_d S and [A_s; A_d] xt in
-    float32 and Ms_inv RHS and WK t in float64, each at its own peak on a
-    pipe of its own, so the slower of the two sets the time of the
-    operations; every launch reads each input once and writes each output
-    once."""
-    m = m_s + m_d
-    f32 = 2 * (2 * m * n + m_d * n)
-    f64 = 2 * (n * n + n * m_d)
-    ops = B * sum(phases) * max(f32 / PEAK_F32, f64 / PEAK_F64)
+    one launch per entry of ``phases`` (iterations each) on B lanes. The
+    operations are the fewest a known form of the loop needs, the smaller of
+    two counts. As written (the TPU kernel's form): per lane and iteration
+    [A_s; A_d]'r, A_d S and [A_s; A_d] xt in float32, Ms_inv RHS and WK t in
+    float64. Folded (structured_admm_folded.cu): xt = C RHS with the lane's
+    C = (I - WK A_d) Ms_inv, so an iteration keeps [A_s; A_d]'r and
+    [A_s; A_d] xt in float32 (2 m n multiply-adds) and C RHS in float64
+    (n^2), and a launch pays n m_d n + n^3 float64 multiply-adds for C.
+    float32 and float64 run at their own peaks on pipes of their own, so the
+    slower of the two sets the time of a form; every launch reads each input
+    once and writes each output once."""
+    m, its, launches = m_s + m_d, sum(phases), len(phases)
+    written = max(its * 2 * (2 * m * n + m_d * n) / PEAK_F32,
+                  its * 2 * (n * n + n * m_d) / PEAK_F64)
+    folded = max(its * 2 * 2 * m * n / PEAK_F32,
+                 (its * 2 * n * n + launches * 2 * (n * m_d * n + n ** 3)) / PEAK_F64)
+    ops = B * min(written, folded)
     per_lane = 4 * (2 * n + 4 * m_s + 5 * m_d + 2 * n * m_d) + 4 * (n + 2 * m)
     moved = len(phases) * (B * per_lane + 4 * (n * n + m_s * n + m_s)) / PEAK_BYTES
     return max(ops, moved) * 1e3, "operations" if ops >= moved else "bytes"
@@ -266,45 +308,56 @@ def max_dev(out_k, out_t, what: str) -> float:
     return err
 
 
-def check_kernel(swarm_fov_shapes, iters: int = 40) -> dict:
+def check_kernel(iters: int = 40) -> dict:
     """Every kernel variant against the twin; returns the max abs error of
     each row of the kernels record."""
-    SWARM_FOV_SHAPES = swarm_fov_shapes
     cases = [  # (row of the record, what, shapes, lanes, kernel launched by name or None)
         ("tiled_fov", "fov", FOV_SHAPES, 1001, None),
         ("tiled_fov", "fov, fewer lanes than a block", FOV_SHAPES, 3, None),
         ("tiled_connectivity", "connectivity", CONN_SHAPES, 1001, None),
         ("tiled_connectivity", "connectivity, fewer lanes than a block", CONN_SHAPES, 3, None),
-        ("resident", "32-agent connectivity", SWARM_CONN_SHAPES, 64, None),
+        ("folded_swarm_connectivity", "32-agent connectivity", SWARM_CONN_SHAPES, 1001, None),
+        ("folded_swarm_connectivity", "32-agent connectivity, 3 lanes", SWARM_CONN_SHAPES, 3, None),
+        ("folded_swarm_fov", "32-agent fov", SWARM_FOV_SHAPES, 64, None),
+        ("folded_swarm_fov", "32-agent fov, 3 lanes", SWARM_FOV_SHAPES, 3, None),
+        ("resident", "run_sim's 3-robot connectivity", RUN_SIM_CONN_SHAPES, 3, None),
         ("resident", "fov through the first version", FOV_SHAPES, 100, "resident"),
+        ("resident", "32-agent connectivity through the first version", SWARM_CONN_SHAPES, 64,
+         "resident"),
         ("tiled_lambda2", "connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES, 1001, None),
         ("tiled_lambda2", "connectivity with the λ₂/CLF rows, fewer lanes than a block",
          LAMBDA2_SHAPES, 3, None),
-        ("streamed", "32-agent fov", SWARM_FOV_SHAPES, 64, None),
+        ("streamed", "24-agent fov", TEAM24_FOV_SHAPES, 64, None),
         ("streamed", "fov through the streamed kernel", FOV_SHAPES, 100, "streamed"),
+        ("streamed", "32-agent fov through the streamed kernel", SWARM_FOV_SHAPES, 64, "streamed"),
+        # the longest phase of the 32-agent fov step: two float32 loops after 550 iterations
+        ("folded_swarm_fov", "32-agent fov, the step's longest phase", SWARM_FOV_SHAPES, 64, None,
+         max(SWARM_PHASES["fov"])),
     ]
     errs = {}
-    for row, what, shapes, B, variant in cases:
+    for row, what, shapes, B, variant, *longer in cases:
+        n_it = longer[0] if longer else iters
         args = phase_inputs(B, seed=0, shapes=shapes)
         reset_counts()
         if variant is None:                   # the kernel of the shape, through the wrapper
-            out_k = KERNEL(*args, iters=iters, **KW)
+            out_k = KERNEL(*args, iters=n_it, **KW)
             took = [v for v, c in KERNEL.launches_by_variant.items() if c]
             if took != [row.split("_")[0]]:
                 raise AssertionError(f"{what}: launched {took}, expected the {row} kernel")
         else:                                 # a generic kernel on a shape that takes another
-            out_k = fused_admm.launch_variant(fused_admm._lib(), variant, args, iters=iters, **KW)
+            out_k = fused_admm.launch_variant(fused_admm._lib(), variant, args, iters=n_it, **KW)
             took = [variant]
-        out_t = fused_admm.structured_admm_iterations_ref(*args, iters=iters, **KW)
+        out_t = fused_admm.structured_admm_iterations_ref(*args, iters=n_it, **KW)
         torch.cuda.synchronize()
         err = max_dev(out_k, out_t, what)
         errs[row] = max(errs.get(row, 0.0), err)
-        log(f"kernel vs twin, {what} {tuple(shapes.values())} at B={B}, {iters} iterations "
+        log(f"kernel vs twin, {what} {tuple(shapes.values())} at B={B}, {n_it} iterations "
             f"({took[0]}): max |dev| {err:.3e} (rtol = atol = {RTOL})")
 
     # a NaN lane leaves every other lane, those of its block too, bitwise untouched
     for what, shapes, bad_lane in (("fov", FOV_SHAPES, 5), ("connectivity", CONN_SHAPES, 10),
-                                   ("connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES, 10)):
+                                   ("connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES, 10),
+                                   ("32-agent connectivity", SWARM_CONN_SHAPES, 10)):
         args = phase_inputs(37, seed=2, shapes=shapes)
         clean = KERNEL(*args, iters=iters, **KW)
         args[3] = args[3].clone()
@@ -320,39 +373,50 @@ def check_kernel(swarm_fov_shapes, iters: int = 40) -> dict:
     return errs
 
 
-def time_phases(what: str, shapes, B: int, phases=PHASES, first_version: bool = False,
+def bound_text(b_ms: float, k_ms: float) -> str:
+    """'bound x ms (y % of it reached)'; a bound of microseconds (three lanes
+    on a whole card) keeps its digits."""
+    small = b_ms < 0.01
+    return (f"bound {b_ms:.3e} ms" if small else f"bound {b_ms:.3f} ms") + \
+        f" ({100 * b_ms / k_ms:.{3 if small else 1}f} % of it reached)"
+
+
+def time_phases(what: str, shapes, B: int, phases=PHASES, replaced: str | None = None,
                 reps: int = 5) -> dict:
     """Device ms of the kernel (the variant the shape takes) and the twin
-    per rho phase length at B lanes, beside the bound; with first_version,
-    the resident kernel too. Returns the sums over ``phases``: the launches
-    one control step makes on B lanes."""
+    per rho phase length at B lanes, beside the bound; with ``replaced``,
+    the kernel of that name too (the one this shape ran before it got its
+    own), which must be the slower one. Returns the sums over ``phases``:
+    the launches one control step makes on B lanes."""
     args = phase_inputs(B, seed=1, shapes=shapes)
     lib = fused_admm._lib()
     per = {}
     for iters in sorted(set(phases)):
         kw = dict(iters=iters, **KW)
         k_ms = cuda_ms(lambda: KERNEL(*args, **kw), reps=reps)
-        f_ms = cuda_ms(lambda: fused_admm.launch_variant(lib, "resident", args, **kw), reps=3) \
-            if first_version else None
+        f_ms = cuda_ms(lambda: fused_admm.launch_variant(lib, replaced, args, **kw),
+                       reps=min(reps, 3)) if replaced else None
         t_ms = cuda_ms(lambda: fused_admm.structured_admm_iterations_ref(*args, **kw),
                        reps=min(reps, 2))
         b_ms, _ = bound(B, **shapes, phases=(iters,))
         per[iters] = (k_ms, t_ms, f_ms)
-        log(f"{what}, phase of {iters:3d} iterations at B={B}: kernel {k_ms:.3f} ms, bound "
-            f"{b_ms:.3f} ms ({100 * b_ms / k_ms:.1f} % of it reached), plain twin {t_ms:.3f} ms"
-            + (f", first version {f_ms:.3f} ms" if first_version else ""))
+        log(f"{what}, phase of {iters:3d} iterations at B={B}: kernel {k_ms:.3f} ms, "
+            f"{bound_text(b_ms, k_ms)}, plain twin {t_ms:.3f} ms"
+            + (f", {replaced} kernel {f_ms:.3f} ms" if replaced else ""))
     k_sum, t_sum = (sum(per[i][j] for i in phases) for j in (0, 1))
     b_ms, by = bound(B, **shapes, phases=phases)
     out = dict(ms=k_sum, plain_ms=t_sum, bound_ms=b_ms, bound_by=by, lanes=B, phases=list(phases))
-    msg = (f"{what}, {len(phases)} phases {phases} at B={B}: kernel {k_sum:.3f} ms, bound "
-           f"{b_ms:.3f} ms by {by} (peaks {PEAK_F32 / 1e12:.0f} / {PEAK_F64 / 1e12:.0f} TFLOP/s "
-           f"float32 / float64, {PEAK_BYTES / 1e12:.2f} TB/s): {100 * b_ms / k_sum:.1f} % of "
-           f"the bound reached; twin {t_sum:.3f} ms")
-    if first_version:
+    msg = (f"{what}, {len(phases)} phases {phases} at B={B}: kernel {k_sum:.3f} ms, "
+           f"{bound_text(b_ms, k_sum)}, by {by} (peaks {PEAK_F32 / 1e12:.0f} / "
+           f"{PEAK_F64 / 1e12:.0f} TFLOP/s float32 / float64, {PEAK_BYTES / 1e12:.2f} TB/s); "
+           f"twin {t_sum:.3f} ms")
+    if replaced:
         f_sum = sum(per[i][2] for i in phases)
-        msg += f"; first version {f_sum:.3f} ms ({f_sum / k_sum:.2f}x)"
+        out.update(replaced=replaced, replaced_ms=f_sum)
+        msg += f"; the {replaced} kernel it replaced {f_sum:.3f} ms ({f_sum / k_sum:.2f}x)"
         if f_sum <= k_sum:
-            raise AssertionError(f"{what}: the tiled kernel is not faster than the first version")
+            raise AssertionError(f"{what}: the kernel is not faster than the {replaced} kernel "
+                                 "it replaced")
     log(msg)
     return out
 
@@ -529,19 +593,25 @@ def connectivity_path(batch: int = 32768) -> int:
     return launches
 
 
-def swarm_path(mode: str, ctrl, inputs, variant: str, timed: dict) -> int:
-    """One 32-agent control step of benchmarks/swarm.py (SWARM_SOLVER=admm)
+def swarm_path(mode: str, ctrl, inputs, variant: str, timed: dict, usable_bar: float = 0.0,
+               plain: bool = False, split: bool = False) -> int:
+    """One control step of benchmarks/swarm.py's recipe (SWARM_SOLVER=admm)
     through the kernel route; returns the kernel launches of the call.
     ``timed``: the kernel-alone row of this path, which must have been
-    taken at this step's lanes per launch and phase lengths."""
-    batch = inputs[0].pos.shape[0]
+    taken at this step's lanes per launch and phase lengths; it receives
+    what the step measured under "step". ``plain``: the
+    same step through the plain loop too (one call); the usable rates must
+    agree within 0.01 and the success flags on 99 % of the lanes. ``split``:
+    one more call with a sync around each stage and one under the profiler."""
+    batch, agents = inputs[0].pos.shape[0], inputs[2].shape[1] + 1
     cfg = StructuredConfig(iters=600, iters_tail=200) if mode == "fov" \
         else StructuredConfig(iters=100)
     simpc = StructuredIMPC(ctrl, cfg)
     chunk = simpc.op_qp._lane_chunk(batch) or batch
     phases = [p[0] for op in (simpc.op_qp, simpc.op_qp_tail or simpc.op_qp) for p in op.phases]
+    what = f"{agents}-agent {mode}"
     if (chunk, phases) != (timed["lanes"], timed["phases"]):
-        raise AssertionError(f"32-agent {mode} step launches {chunk} lanes for {phases} "
+        raise AssertionError(f"{what} step launches {chunk} lanes for {phases} "
                              f"iterations; timed alone at {timed['lanes']}, {timed['phases']}")
     step = lambda: simpc.optimize_batch(*inputs)
     step()                                    # warm-up
@@ -553,15 +623,63 @@ def swarm_path(mode: str, ctrl, inputs, variant: str, timed: dict) -> int:
     dt = sync_clock() - t0
     expected = 4 * -(-batch // chunk)         # 2 IMPC iterations x 2 rho phases per chunk
     if KERNEL.launches != expected or KERNEL.launches_by_variant[variant] != expected:
-        raise AssertionError(f"32-agent {mode} step launched {KERNEL.launches_by_variant}, "
+        raise AssertionError(f"{what} step launched {KERNEL.launches_by_variant}, "
                              f"expected the {variant} kernel {expected} times")
     usable = check_result(res, batch)
-    log(f"32-agent {mode}, {batch} lanes, ADMM {cfg.iters} iterations, lane_chunk auto = "
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timed["step"] = dict(usable=usable, ms=dt * 1e3, peak=peak)
+    log(f"{what}, {batch} lanes, ADMM {cfg.iters} iterations, lane_chunk auto = "
         f"{chunk} lanes ({-(-batch // chunk)} chunks), {variant} kernel x{expected}: usable "
         f"{usable:.4f}, flyable {float(res.flyable.float().mean()):.4f}, {dt * 1e3:.2f} ms, "
-        f"{batch * 2 / dt:.1f} solves/s, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        f"{batch * 2 / dt:.1f} solves/s, peak device memory {peak:.3f} GiB")
+    if usable < usable_bar:
+        raise AssertionError(f"{what} ADMM usable rate {usable:.4f} < {usable_bar}")
+    if split:
+        stage_split(simpc, inputs)
+        profile_call(step)
+    if plain:
+        slow = StructuredIMPC(ctrl, dataclasses.replace(cfg, use_kernel=False))
+        before = KERNEL.launches
+        t0 = sync_clock()
+        res_t = slow.optimize_batch(*inputs)
+        dt_t = sync_clock() - t0
+        if KERNEL.launches != before:
+            raise AssertionError("the plain loop launched the kernel")
+        usable_t = check_result(res_t, batch)
+        differ = int((res.success != res_t.success).sum())
+        both = res.success & res_t.success
+        dev = (res.coeffs - res_t.coeffs).abs().amax(-1)[both]
+        log(f"{what}, {batch} lanes, plain loop: usable {usable_t:.4f}, {dt_t * 1e3:.2f} ms; "
+            f"success flags differ on {differ} lanes ({differ / batch:.4f}); coefficients on "
+            f"{int(both.sum())} lanes usable in both: median |dev| {float(dev.median()):.2e}, "
+            f"p99 {float(dev.quantile(0.99)):.2e}, max {float(dev.max()):.2e}")
+        if abs(usable - usable_t) > 0.01 or differ > 0.01 * batch:
+            raise AssertionError(f"{what}: kernel usable {usable:.4f}, plain {usable_t:.4f}, flags "
+                                 f"differ on {differ} lanes (bars: within 0.01, at most 1 %)")
     return expected
+
+
+def swarm_ipm_path(mode: str, ctrl, inputs, admm: dict) -> None:
+    """The same 32-agent step through the f32 IPM (IPM_F32_ENTRY,
+    benchmarks/swarm.py's default solver): one call after a warm-up, beside
+    the ADMM step's numbers (``admm``: what swarm_path left under "step").
+    The only bar: finite flyable lanes."""
+    batch, agents = inputs[0].pos.shape[0], inputs[2].shape[1] + 1
+    simpc = StructuredIMPC(ctrl, IPM_F32_ENTRY)
+    step = lambda: simpc.optimize_batch(*inputs)
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res, times = timed_calls(step, 1)
+    if KERNEL.launches:
+        raise AssertionError("the IPM control step launched the ADMM kernel")
+    usable = check_result(res, batch)
+    log(f"{agents}-agent {mode}, {batch} lanes, f32 IPM (IPM_F32_ENTRY): usable {usable:.4f}, "
+        f"flyable {float(res.flyable.float().mean()):.4f}, {times[0] * 1e3:.2f} ms, "
+        f"{batch * 2 / times[0]:.1f} solves/s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; the ADMM step: usable "
+        f"{admm['usable']:.4f}, {admm['ms']:.2f} ms, peak {admm['peak']:.3f} GiB")
 
 
 def timed_calls(step, n: int):
@@ -1053,11 +1171,23 @@ JAX_CPU_RUN_SIM = {
 }
 
 
-def command_line() -> None:
+def run_sim_team() -> tuple:
+    """(shapes, phase lengths) of the structured solve that run_sim
+    --controller connectivity makes for a 3-robot team (3 lanes a launch)."""
+    sim, _ = run_sim.build_sim(cfgmod.load_config(BASE_CONFIG), "connectivity", 3,
+                               RUN_SIM_ITERS, device=DEV)
+    simpc = sim._structured_impc()
+    return controller_shapes(sim.controller), tuple(
+        p[0] for op in (simpc.op_qp, simpc.op_qp_tail or simpc.op_qp) for p in op.phases)
+
+
+def command_line() -> int:
     """mpc_cbf_torch.apps.run_sim.main, the command a user types, on the
     3-robot rotate instance for 8 s of flight: every controller, the λ₂/CLF
     family and the particle filter. Bars (what the JAX package's runner
-    reaches on these rotate instances): success and solver_success_rate >= 0.95."""
+    reaches on these rotate instances): success and solver_success_rate >= 0.95.
+    Returns the kernel launches of --controller connectivity, which must be
+    the resident kernel's, one per phase of RUN_SIM_PHASES and step."""
     variants = [("connectivity",), ("connectivity", "--enable-connectivity"), ("fov",),
                 ("single-shot",), ("mpc",), ("cbf-connectivity",), ("cbf-fov",),
                 ("cbf-fov", "--pf")]
@@ -1092,6 +1222,14 @@ def command_line() -> None:
                 raise AssertionError(f"run_sim {name} misses the bar the JAX package meets")
         if variant[0] in ("connectivity", "single-shot") and not KERNEL.launches:
             raise AssertionError(f"run_sim {name} did not launch the structured ADMM kernel")
+        if name == "connectivity":
+            launches = KERNEL.launches
+            if KERNEL.launches_by_variant["resident"] != launches \
+                    or launches != len(RUN_SIM_PHASES) * summary["steps"]:
+                raise AssertionError(f"run_sim {name} launched {KERNEL.launches_by_variant} in "
+                                     f"{summary['steps']} steps, expected the resident kernel "
+                                     f"{len(RUN_SIM_PHASES)} times a step")
+    return launches
 
 
 def main() -> int:
@@ -1104,34 +1242,54 @@ def main() -> int:
     phase("kernel build", build)
     swarm = {mode: swarm_problem(mode, scenarios=128) for mode in ("connectivity", "fov")}
     swarm_shapes = {mode: controller_shapes(ctrl) for mode, (ctrl, _) in swarm.items()}
-    if swarm_shapes["connectivity"] != SWARM_CONN_SHAPES or swarm_shapes["fov"]["m_d"] != 372:
+    if swarm_shapes != {"connectivity": SWARM_CONN_SHAPES, "fov": SWARM_FOV_SHAPES}:
         raise AssertionError(f"32-agent shapes {swarm_shapes}")
-    errs = phase("kernels against the twin", check_kernel, swarm_shapes["fov"])
+    # a team size without a compiled kernel, beyond a block's shared memory: 32 rings of 24
+    team24 = swarm_problem("fov", scenarios=32, A=24)
+    if controller_shapes(team24[0]) != TEAM24_FOV_SHAPES:
+        raise AssertionError(f"24-agent fov shapes {controller_shapes(team24[0])}")
+    if run_sim_team() != (RUN_SIM_CONN_SHAPES, RUN_SIM_PHASES):
+        raise AssertionError(f"run_sim's 3-robot connectivity solve is {run_sim_team()}")
+    errs = phase("kernels against the twin", check_kernel)
 
     def time_kernels() -> dict:
         return {
-            "tiled_fov": time_phases("fov", FOV_SHAPES, 8192, first_version=True),
+            "tiled_fov": time_phases("fov", FOV_SHAPES, 8192, replaced="resident"),
             "tiled_connectivity": time_phases("connectivity", CONN_SHAPES, 32768,
-                                              first_version=True),
+                                              replaced="resident"),
             # at the lanes and phase lengths the 32-agent steps below give a launch:
             # all 4096 lanes, and one lane chunk of 2048
-            "resident": time_phases("32-agent connectivity", SWARM_CONN_SHAPES, 4096,
-                                    phases=SWARM_PHASES["connectivity"]),
-            "streamed": time_phases("32-agent fov", swarm_shapes["fov"], 2048,
-                                    phases=SWARM_PHASES["fov"], reps=1),
+            "folded_swarm_connectivity": time_phases(
+                "32-agent connectivity", SWARM_CONN_SHAPES, 4096,
+                phases=SWARM_PHASES["connectivity"], replaced="resident"),
+            "folded_swarm_fov": time_phases("32-agent fov", SWARM_FOV_SHAPES, 2048,
+                                            phases=SWARM_PHASES["fov"], replaced="streamed",
+                                            reps=3),
             # the 4-robot connectivity step with the λ₂/CLF rows
             "tiled_lambda2": time_phases("connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES,
-                                         32768, first_version=True),
+                                         32768, replaced="resident"),
+            # the two kernels of any shape, at the lanes a launch gets from run_sim's
+            # 3-robot team (the command-line phase) and from the 24-agent step below
+            "resident": time_phases("run_sim's 3-robot connectivity", RUN_SIM_CONN_SHAPES, 3,
+                                    phases=RUN_SIM_PHASES),
+            "streamed": time_phases("24-agent fov", TEAM24_FOV_SHAPES, 768,
+                                    phases=SWARM_PHASES["fov"], reps=1),
         }
     rows = phase("kernels timed alone", time_kernels)
     rows["tiled_fov"]["launches"] = phase("fov ADMM step", fov_main_path)
     rows["tiled_connectivity"]["launches"] = phase("connectivity ADMM step", connectivity_path)
-    rows["resident"]["launches"] = phase(
+    rows["folded_swarm_connectivity"]["launches"] = phase(
         "32-agent connectivity step", swarm_path, "connectivity", *swarm["connectivity"],
-        "resident", rows["resident"])
+        "folded", rows["folded_swarm_connectivity"], usable_bar=0.99)
+    rows["folded_swarm_fov"]["launches"] = phase(
+        "32-agent fov step", swarm_path, "fov", *swarm["fov"], "folded",
+        rows["folded_swarm_fov"], usable_bar=0.97, plain=True, split=True)
+    for mode in ("connectivity", "fov"):
+        phase(f"32-agent {mode} step, f32 IPM", swarm_ipm_path, mode, *swarm[mode],
+              rows[f"folded_swarm_{mode}"]["step"])
     rows["streamed"]["launches"] = phase(
-        "32-agent fov step", swarm_path, "fov", *swarm["fov"], "streamed", rows["streamed"])
-    del swarm
+        "24-agent fov step", swarm_path, "fov", *team24, "streamed", rows["streamed"])
+    del swarm, team24
     torch.cuda.empty_cache()
     rows["tiled_lambda2"]["launches"] = phase("λ₂ connectivity step", lambda2_path,
                                               rows["tiled_lambda2"])
@@ -1144,7 +1302,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("batched eigh", eigh_check)
     phase("sweep loops", sweep_loops)
-    phase("command line", command_line)
+    rows["resident"]["launches"] = phase("command line", command_line)
     log(f"  [all phases: {time.perf_counter() - t_start:.1f} s]")
     print(json.dumps({"kernels": [{
         "name": f"structured_admm_{row}", "route": "cuda",
@@ -1152,7 +1310,8 @@ def main() -> int:
         "replaces": "mpc_cbf_tpu/ops/qp/pallas_admm.py:35",
         "launches": r["launches"], "max_abs_err": errs[row], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": None, "lanes": r["lanes"], "phases": r["phases"]}
+        "library_ms": None, "lanes": r["lanes"], "phases": r["phases"],
+        "replaced": r.get("replaced"), "replaced_ms": r.get("replaced_ms")}
         for row, r in rows.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,19 +18,23 @@
 //
 // What bounds the loop on an H100 is its arithmetic, not its bytes: every
 // operand is read from device memory once a launch and then used in each of
-// the 32 to 150 iterations (the count is worked out in
-// structured_admm_tiled.cu). Three kernels, chosen from the shape alone by
+// the 32 to 550 iterations (the count is worked out in
+// structured_admm_tiled.cu). Four kernels, chosen from the shape alone by
 // structured_admm_variant():
 //   tiled     structured_admm_tiled.cu: compiled per shape (fov, connectivity),
 //             several lanes a block, A_d in registers. The main paths run it.
+//   folded    structured_admm_folded.cu: compiled per shape (32-agent fov and
+//             connectivity), one lane a block, [A_s; A_d] in registers, WK
+//             folded into the lane's C = (I - WK A_d) Ms_inv.
 //   resident  below: one block per lane, every operand of the lane in
 //             dynamic shared memory (fov: ~88 KB, two blocks an SM). The
-//             first version of the port; it stays under 4 % of the bound
+//             first version of the port; it stays near 3 % of the bound
 //             (two shared-memory loads per multiply-add, eight block-wide
 //             barriers an iteration around stages of 43 to 211 threads) and
 //             serves the shapes without an instantiation.
-//   streamed  below: for shapes whose operands exceed the 227 KB a block may
-//             have (32-agent fov: n = 67, m_d = 372). A_s, Ms_inv and the
+//   streamed  below: for shapes without an instantiation whose operands
+//             exceed the 227 KB a block may have (a 24-agent fov team: n = 59,
+//             m_d = 276). A_s, Ms_inv and the
 //             vectors stay in shared memory; the lane's A_d and WK stay in
 //             device memory and are read again every iteration, one warp a
 //             row with coalesced loads, from L2 while the resident blocks'
@@ -366,10 +370,12 @@ int launch_per_lane(Kernel kernel, size_t bytes, const AdmmArgs& a, cudaStream_t
 
 }  // namespace
 
-// The kernel a shape takes: tiled where there is an instantiation, resident
-// where the lane's operands fit a block's shared memory, else streamed.
+// The kernel a shape takes: tiled or folded where there is an instantiation,
+// resident where the lane's operands fit a block's shared memory, else
+// streamed.
 extern "C" int structured_admm_variant(int n, int m_s, int m_d) {
   if (structured_admm_tiled_has(n, m_s, m_d)) return kTiled;
+  if (structured_admm_folded_has(n, m_s, m_d)) return kFolded;
   return Layout(n, m_s, m_d, kThreads).bytes(n, m_d) <= kMaxSharedBytes ? kResident : kStreamed;
 }
 
@@ -400,6 +406,8 @@ extern "C" int structured_admm_launch(
   int rc;
   if (variant == kTiled)
     rc = structured_admm_tiled_launch(a, s);
+  else if (variant == kFolded)
+    rc = structured_admm_folded_launch(a, s);
   else if (variant == kResident)
     rc = launch_per_lane(resident_kernel, Layout(n, m_s, m_d, kThreads).bytes(n, m_d), a, s);
   else if (variant == kStreamed)

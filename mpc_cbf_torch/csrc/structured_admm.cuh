@@ -1,6 +1,8 @@
 // Shared declarations of the structured-ADMM kernels (structured_admm.cu:
 // the entry point and the two runtime-dimension kernels;
-// structured_admm_tiled.cu: the kernel specialised per shape).
+// structured_admm_tiled.cu: the kernel specialised per shape, several lanes a
+// block; structured_admm_folded.cu: one lane a block, the stacked matrix in
+// registers, the Woodbury correction folded into one matrix).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,7 +21,7 @@ struct AdmmArgs {
 };
 
 // Kernel variants; structured_admm_variant() picks one from the shape alone.
-enum AdmmVariant { kTiled = 0, kResident = 1, kStreamed = 2 };
+enum AdmmVariant { kTiled = 0, kResident = 1, kStreamed = 2, kFolded = 3 };
 
 // NaN-propagating clip with the semantics of torch.clamp / jnp.clip
 // (max with lo first, then min with hi). fminf/fmaxf would drop a NaN and
@@ -45,3 +47,6 @@ __device__ __forceinline__ float row_update(float zA, float rho, float lo, float
 // launch (returns a cudaError_t; cudaErrorInvalidValue without one).
 bool structured_admm_tiled_has(int n, int m_s, int m_d);
 int structured_admm_tiled_launch(const AdmmArgs& a, cudaStream_t stream);
+// structured_admm_folded.cu: the same pair for its instantiations.
+bool structured_admm_folded_has(int n, int m_s, int m_d);
+int structured_admm_folded_launch(const AdmmArgs& a, cudaStream_t stream);

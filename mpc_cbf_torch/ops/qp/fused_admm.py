@@ -6,9 +6,12 @@ of ``StructuredQPOperator._solve`` for a whole batch of lanes. On CUDA
 float32 tensors it launches one of the kernels of ``csrc/`` (built at first
 use by ``mpc_cbf_torch._build``), chosen from the shape alone (``VARIANTS``):
 ``tiled`` for the shapes compiled in ``csrc/structured_admm_tiled.cu`` (the
-fov and connectivity control steps), ``resident`` where a lane's operands
-fit one block's shared memory, ``streamed`` for anything larger (the
-32-agent fov team). On CPU tensors it runs the twin
+fov and connectivity control steps), ``folded`` for those of
+``csrc/structured_admm_folded.cu`` (the 32-agent fov and connectivity
+teams: one lane a block, the Woodbury correction S - WK (Ad S) folded into
+one float64 matrix a lane, C = (I - WK Ad) Ms_inv), ``resident`` for any
+other shape whose lane's operands fit one block's shared memory,
+``streamed`` for anything larger. On CPU tensors it runs the twin
 ``structured_admm_iterations_ref``, which is the scan body of
 ``mpc_cbf_tpu/ops/qp/structured.py:442-463`` as a Python loop. Any other
 CUDA input raises: there is no silent fallback.
@@ -35,7 +38,7 @@ from mpc_cbf_torch import _build
 
 Tensor = torch.Tensor
 #: kernel variants, indexed by the code ``structured_admm_variant`` returns
-VARIANTS = ("tiled", "resident", "streamed")
+VARIANTS = ("tiled", "resident", "streamed", "folded")
 State5 = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]
 
 

@@ -5,10 +5,13 @@ and — on a machine with an NVIDIA GPU — the CUDA kernel against the twin.
 The twin is held against mpc_cbf_tpu.ops.qp.pallas_admm's kernel run in
 interpret mode (as tests/test_pallas_admm.py runs it on the CPU), at the
 fov flagship shapes (n = 43, m_s = 127, m_d = 84), the connectivity shapes
-(36, 126, 6) and the 32-agent connectivity shapes (36, 126, 62) for 40
-iterations, to rtol = atol = 2e-4: the bar of tests/test_pallas_admm.py:53-55
-between two float32 loops that sum in another order. On the card every
-kernel variant (tiled, resident, streamed) is held to the same bar.
+(36, 126, 6), the 32-agent connectivity shapes (36, 126, 62) and the
+32-agent fov shapes (67, 151, 372) for 40 iterations, to rtol = atol = 2e-4:
+the bar of tests/test_pallas_admm.py:53-55 between two float32 loops that
+sum in another order. The folded form of the loop (the algebra of the
+``folded`` kernel) is held to the twin and to the Pallas kernel at the same
+bar. On the card every
+kernel variant (tiled, folded, resident, streamed) is held to it too.
 
 The cases marked ``cuda`` import no JAX, so that they also run where the
 GPU is and JAX is not (tests/conftest.py imports JAX, hence --noconftest):
@@ -32,6 +35,8 @@ import torch_parity_cases as cases
 
 FOV, CONN, SWARM_CONN, SWARM_FOV = (43, 127, 84), (36, 126, 6), (36, 126, 62), (67, 151, 372)
 CONN_LAMBDA2 = (36, 126, 14)         # 4-robot connectivity with the λ₂/CLF rows
+# shapes without a compiled kernel: run_sim's 3-robot connectivity, 24-agent fov
+RUN_SIM_CONN, TEAM24_FOV = (38, 128, 4), (59, 143, 276)
 KW = dict(iters=40, sigma=1e-6, alpha=1.6)
 
 
@@ -40,7 +45,7 @@ def _inputs(B, seed, shape=FOV):
 
 
 @pytest.mark.parametrize("B,shape", [(5, FOV), (3, FOV), (4, CONN), (3, SWARM_CONN),
-                                     (6, CONN_LAMBDA2)])
+                                     (6, CONN_LAMBDA2), (2, SWARM_FOV)])
 def test_twin_matches_pallas_kernel(B, shape):
     import jax.numpy as jnp
     from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
@@ -52,6 +57,66 @@ def test_twin_matches_pallas_kernel(B, shape):
         assert t.shape == j.shape and t.dtype == torch.float32
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=2e-4, atol=2e-4,
                                    err_msg=name)
+
+
+def folded_loop(Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, WK,
+                x0, zs0, zd0, ys0, yd0, *, iters, sigma, alpha):
+    """The loop as the ``folded`` kernel computes it, in plain PyTorch: the
+    twin's update order with the Woodbury solve S - WK (Ad S), S = Ms_inv
+    RHS, as one product xt = C RHS with the lane's float64
+    C = (I - WK Ad) Ms_inv [B, n, n], built once a phase. The same algebra,
+    without the float32 rounding of S and Ad S. It pins the algebra of the
+    kernel where there is no card."""
+    dt, hi = qb.dtype, torch.float64
+    Ms_inv_hi = Ms_inv.to(hi)
+    C = Ms_inv_hi - (WK.to(hi) @ Ad.to(hi)) @ Ms_inv_hi          # [B, n, n]
+    x, zs, zd, ys, yd = x0, zs0, zd0, ys0, yd0
+    for _ in range(iters):
+        rs = rho_s * zs - ys
+        rd = rho_d * zd - yd
+        RHS = sigma * x - qb + rs @ A_sb + torch.einsum("bdj,bd->bj", Ad, rd)
+        xt = torch.einsum("bij,bj->bi", C, RHS.to(hi)).to(dt)
+        zAs = xt @ A_sb.T
+        zAd = torch.einsum("bdj,bj->bd", Ad, xt)
+        x_new = alpha * xt + (1 - alpha) * x
+        zs_h = alpha * zAs + (1 - alpha) * zs + ys / rho_s
+        zd_h = alpha * zAd + (1 - alpha) * zd + yd / rho_d
+        zs_new = torch.clamp(zs_h, lbs, ubs)
+        zd_new = torch.clamp(zd_h, lbd, ubd)
+        ys = ys + rho_s * (alpha * zAs + (1 - alpha) * zs - zs_new)
+        yd = yd + rho_d * (alpha * zAd + (1 - alpha) * zd - zd_new)
+        x, zs, zd = x_new, zs_new, zd_new
+    return x, zs, zd, ys, yd
+
+
+FOLDED_CASES = [(5, FOV), (4, CONN), (3, SWARM_CONN), (6, CONN_LAMBDA2), (2, SWARM_FOV)]
+
+
+@pytest.mark.parametrize("B,shape", FOLDED_CASES)
+def test_folded_loop_matches_twin(B, shape):
+    """xt = C RHS with the lane's float64 C = (I - WK Ad) Ms_inv is the
+    twin's S - WK (Ad S): the algebra of the folded kernel, held to the bar of
+    two float32 loops (it differs from the twin by the float32 rounding of S
+    and Ad S that it skips)."""
+    arrays = [torch.from_numpy(a) for a in _inputs(B, seed=B, shape=shape)]
+    out_f = folded_loop(*arrays, **KW)
+    out_t = structured_admm_iterations_ref(*arrays, **KW)
+    for name, f, t in zip(("x", "zs", "zd", "ys", "yd"), out_f, out_t):
+        assert f.shape == t.shape and f.dtype == torch.float32
+        torch.testing.assert_close(f, t, rtol=2e-4, atol=2e-4, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("B,shape", FOLDED_CASES)
+def test_folded_loop_matches_pallas_kernel(B, shape):
+    """The folded algebra against the JAX package's kernel itself (interpret
+    mode) on the same inputs, at the bar the twin is held to."""
+    import jax.numpy as jnp
+    from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
+    arrays = _inputs(B, seed=B, shape=shape)
+    out_f = folded_loop(*[torch.from_numpy(a) for a in arrays], **KW)
+    out_p = pallas(*[jnp.asarray(a) for a in arrays], interpret=True, block=128, **KW)
+    for name, f, p in zip(("x", "zs", "zd", "ys", "yd"), out_f, out_p):
+        np.testing.assert_allclose(f.numpy(), np.asarray(p), rtol=2e-4, atol=2e-4, err_msg=name)
 
 
 def test_wrapper_runs_twin_on_cpu_without_launching():
@@ -81,7 +146,8 @@ def test_build_flags():
     assert _build.build_dir().parent == _build.BUILD_ROOT
     assert _build.BUILD_ROOT.parts[-2:] == ("build", "kernels")
     assert "-shared" not in _build.NVCC_FLAGS     # sources compile apart, one link at the end
-    assert [p.name for p in _build.SOURCES] == ["structured_admm.cu", "structured_admm_tiled.cu"]
+    assert [p.name for p in _build.SOURCES] == [
+        "structured_admm.cu", "structured_admm_folded.cu", "structured_admm_tiled.cu"]
     assert [p.name for p in _build.HEADERS] == ["structured_admm.cuh"]
 
 
@@ -98,8 +164,12 @@ def _need_gpu():
     (CONN, 3, "tiled"),
     (CONN_LAMBDA2, 1001, "tiled"),
     (CONN_LAMBDA2, 3, "tiled"),
-    (SWARM_CONN, 64, "resident"),    # no instantiation: operands in shared memory
-    (SWARM_FOV, 16, "streamed"),     # beyond a block's shared memory: A_d, WK from device memory
+    (SWARM_CONN, 1001, "folded"),    # one lane a block, WK folded into the lane's C
+    (SWARM_CONN, 3, "folded"),
+    (SWARM_FOV, 64, "folded"),
+    (SWARM_FOV, 3, "folded"),
+    (RUN_SIM_CONN, 3, "resident"),   # no instantiation: operands in shared memory
+    (TEAM24_FOV, 16, "streamed"),    # beyond a block's shared memory: A_d, WK from device memory
 ])
 def test_kernel_matches_twin_on_gpu(shape, B, took):
     """The kernel each shape takes against the twin on the card; same bar as
@@ -119,12 +189,15 @@ def test_kernel_matches_twin_on_gpu(shape, B, took):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["resident", "streamed"])
-def test_generic_kernels_take_the_fov_shapes_on_gpu(variant):
-    """The two kernels that take any shape, launched by name at the fov
-    shapes (which the wrapper gives to the tiled kernel), against the twin."""
+@pytest.mark.parametrize("variant,shape,B", [("resident", FOV, 100), ("streamed", FOV, 100),
+                                             ("resident", SWARM_CONN, 64),
+                                             ("streamed", SWARM_FOV, 16)])
+def test_generic_kernels_take_the_fov_shapes_on_gpu(variant, shape, B):
+    """The two kernels that take any shape, launched by name at shapes the
+    wrapper gives to a compiled kernel (the fov shapes, and the 32-agent
+    shapes they ran before those got theirs), against the twin."""
     _need_gpu()
-    arrays = [torch.from_numpy(a).cuda() for a in _inputs(100, seed=21)]
+    arrays = [torch.from_numpy(a).cuda() for a in _inputs(B, seed=21, shape=shape)]
     before = structured_admm_iterations.launches
     out_k = fused_admm.launch_variant(fused_admm._lib(), variant, arrays, **KW)
     out_t = structured_admm_iterations_ref(*arrays, **KW)
@@ -135,10 +208,11 @@ def test_generic_kernels_take_the_fov_shapes_on_gpu(variant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [FOV, CONN, CONN_LAMBDA2])
+@pytest.mark.parametrize("shape", [FOV, CONN, CONN_LAMBDA2, SWARM_CONN])
 def test_nan_lane_leaves_its_block_untouched_on_gpu(shape):
-    """The tiled kernel runs several lanes in one block; a lane that goes
-    NaN changes no bit of any other lane."""
+    """The tiled kernel runs several lanes in one block, the folded kernel
+    several blocks on one SM; a lane that goes NaN changes no bit of any
+    other lane."""
     _need_gpu()
     arrays = [torch.from_numpy(a).cuda() for a in _inputs(13, seed=23, shape=shape)]
     clean = structured_admm_iterations(*arrays, **KW)
