@@ -8,9 +8,10 @@ kernel for Hopper (``csrc/structured_admm.cu``, built by ``_build.py``).
 
 Ported so far: the fov/connectivity MPC-CBF control step through
 ``controllers.mpc_cbf.StructuredIMPC`` with the structured ADMM
-(``ops.qp.structured``, slice 1) or the Mehrotra IPM family
-(``ops.qp.ipm``: the f32 entry, the f64 IPM and the f32 -> f64 hybrid,
-slice 2), and the structured closed loop ``parallel.MultiAgentSim``.
+(``ops.qp.structured``, optionally with the f64 active-set polish of
+``ops.qp.polish``) or the Mehrotra IPM family (``ops.qp.ipm``), the dense
+ADMM and every controller on it, the closed loops of ``parallel``, the
+exact oracle (``ops.qp.oracle``) and the apps ``run_sim`` and ``sweep``.
 """
 
 __version__ = "0.1.0"

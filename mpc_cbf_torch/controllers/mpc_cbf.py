@@ -26,9 +26,9 @@ violation price): w_i = slack_cost * decay^rank(i)
 
 Two routes run the same assembly: ``optimize`` solves each lane's dense
 QP with the batched ADMM (``ops/qp/admm.py``), and ``StructuredIMPC`` runs
-the batch through the structure-exploiting solvers (the Woodbury ADMM, the
-f32/f64 Mehrotra IPM, the f32 -> f64 hybrid IPM). Not ported yet: the f64
-active-set polish.
+the batch through the structure-exploiting solvers (the Woodbury ADMM,
+optionally with the f64 active-set polish, the f32/f64 Mehrotra IPM, the
+f32 -> f64 hybrid IPM).
 """
 
 from __future__ import annotations
@@ -598,8 +598,9 @@ class StructuredIMPC:
     """
 
     def __init__(self, ctrl: _IMPCCBFBase, cfg=None):
-        """cfg: StructuredConfig (the f32 ADMM; None is the JAX package's
-        default budget of 150 iterations), IPMConfig (the Mehrotra IPM:
+        """cfg: StructuredConfig (the f32 ADMM, with polish=True followed by
+        the f64 active-set polish; None is the JAX package's default budget
+        of 150 iterations), IPMConfig (the Mehrotra IPM:
         IPM_F32_ENTRY is the raw production profile, IPMConfig() the
         certified f64 one) or HybridIPMConfig (f32 entry + f64 tail;
         HYBRID_PROD is the shipping certified pipeline)."""
@@ -621,18 +622,28 @@ class StructuredIMPC:
             self.op_qp = StructuredIPM(P, A_s, eq_mask, ctrl.m_dynamic, self.cfg,
                                        device=op.device)
         elif isinstance(self.cfg, StructuredConfig):
-            if self.cfg.polish:
-                raise NotImplementedError("the f64 active-set polish is not ported yet")
             q_hint = ctrl.impc.slack_cost if ctrl.impc.slack_mode else 0.0
-            # slack nonnegativity rows sit LAST in A_s (static_parts); the
-            # stiff rho phase scales them with the dynamic rows
+            # slack nonnegativity rows sit LAST in A_s (static_parts): the
+            # stiff rho phase scales them with the dynamic rows, and the
+            # polish keeps them pinnable. Each guard GROUP lists every row
+            # touching slack j: its nonnegativity row plus its CBF rows
+            # (layout [H, N, F] flattened, neighbour j owns rows
+            # m_s + (h*N + j)*F + f), so the polish can keep >= 1 of them
+            # pinned at all times.
             m_s = A_s.shape[0]
-            guards = tuple(range(m_s - ctrl.S, m_s)) if ctrl.S else ()
+            guards, groups = (), ()
+            if ctrl.S:
+                H, F, N = ctrl.impc.cbf_horizon, ctrl.num_families, ctrl.N
+                guards = tuple(range(m_s - ctrl.S, m_s))
+                groups = tuple((m_s - ctrl.S + j,) + tuple(
+                    m_s + (h * N + j) * F + f for h in range(H) for f in range(F))
+                    for j in range(ctrl.S))
 
             def operator(cfg):
                 return StructuredQPOperator(P, A_s, eq_mask, ctrl.m_dynamic, cfg,
                                             device=op.device, dtype=op.dtype,
-                                            q_scale_hint=q_hint, polish_guard_rows=guards)
+                                            q_scale_hint=q_hint, polish_guard_rows=guards,
+                                            polish_guard_groups=groups)
 
             self.op_qp = operator(self.cfg)
             # warm solves (IMPC iterations > 0) enter with carried duals and
@@ -691,8 +702,9 @@ class StructuredIMPC:
             # duals) and may run the reduced tail budget
             op_solve = self.op_qp if (it == 0 or self.op_qp_tail is None) \
                 else self.op_qp_tail
-            sol = op_solve.solve(q, lb_s, ub_s, A_d, lb_d, ub_d, x0=x0,
-                                 ys0=ys0, yd0=yd0)
+            solve = op_solve.solve_polished if getattr(self.cfg, "polish", False) \
+                else op_solve.solve
+            sol = solve(q, lb_s, ub_s, A_d, lb_d, ub_d, x0=x0, ys0=ys0, yd0=yd0)
             # back to the caller's dtype: an f64 solve must not leak into an
             # f32 caller (the round-off is far below the 1e-3 certificate)
             coeffs = sol.z[:, : op.n_dec].to(dt)

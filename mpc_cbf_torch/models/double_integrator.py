@@ -92,3 +92,9 @@ class DoubleIntegrator:
         d, ts = self.dim, self.ts
         return State(pos=state.pos + ts * state.vel + (0.5 * ts * ts) * u[..., :d],
                      vel=state.vel + ts * u[..., :d])
+
+
+def double_integrator_xyyaw(ts: float) -> DoubleIntegrator:
+    """The reference's DoubleIntegratorXYYaw: state [px,py,yaw,vx,vy,w],
+    u=[ax,ay,alpha] (DoubleIntegratorXYYaw.cpp:9-21)."""
+    return DoubleIntegrator(dim=3, ts=ts)

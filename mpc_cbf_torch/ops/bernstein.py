@@ -12,9 +12,10 @@ runtime cost of "evaluate basis" is therefore zero — only the matmuls
 basis @ control_points remain.
 
 This is the numpy half of ``mpc_cbf_tpu/ops/bernstein.py`` carried over as
-it is (importing it would pull in jax through ``mpc_cbf_tpu/__init__``).
-The tensor helpers ``eval_curve``, ``max_derivative_magnitude`` and
-``PiecewiseCurve`` are not on the ported slice yet.
+it is (importing it would pull in jax through ``mpc_cbf_tpu/__init__``);
+the tensor helpers ``eval_curve``, ``max_derivative_magnitude`` and
+``PiecewiseCurve`` evaluate solved curves as one matmul in the dtype and on
+the device of the coefficients.
 
 Decision-variable layout per piece (matches BezierQPOperations.cpp:44-68):
 per piece the variables are grouped by dimension:
@@ -29,6 +30,7 @@ import math
 from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def comb(n: int, k: int) -> int:
@@ -257,3 +259,48 @@ class PiecewiseBezier:
         return out
 
 
+def max_derivative_magnitude(
+    piecewise: PiecewiseBezier, coeffs: torch.Tensor, derivative_degree: int, step: float = 0.01
+) -> torch.Tensor:
+    """max_t ||f^(r)(t)|| over a ``step``-spaced scan of the full parameter
+    range, matching Bezier::maximumDerivativeMagnitude
+    (splines/src/curves/Bezier.cpp:79-97). coeffs: [..., n_dec]; the scan
+    grid is static, so this is one matmul and a norm-reduce."""
+    ts = np.arange(0.0, piecewise.max_parameter + step / 2, step)
+    ts[-1] = min(ts[-1], piecewise.max_parameter)
+    samples = eval_curve(piecewise, coeffs, list(ts), derivative_degree)
+    return torch.amax(torch.linalg.vector_norm(samples, dim=-1), dim=-1)
+
+
+def eval_curve(piecewise: PiecewiseBezier, coeffs: torch.Tensor, ts,
+               derivative_degree: int = 0) -> torch.Tensor:
+    """Evaluate a solved piecewise curve at static times ts.
+    coeffs: [..., n_dec]; returns [..., len(ts), dim]."""
+    E = torch.as_tensor(piecewise.eval_matrix(list(ts), derivative_degree),
+                        dtype=coeffs.dtype, device=coeffs.device)
+    flat = coeffs @ E.T                                     # [..., len(ts)*dim]
+    return flat.reshape(*flat.shape[:-1], len(ts), piecewise.dim)
+
+
+class PiecewiseCurve:
+    """A solved curve: coefficients bound to their PiecewiseBezier family,
+    the counterpart of splines::SingleParameterPiecewiseCurve
+    (curves/SingleParameterPiecewiseCurve.h:13-63: eval(t, derivative),
+    max_parameter) and splines::Bezier::maximumDerivativeMagnitude."""
+
+    def __init__(self, piecewise: PiecewiseBezier, coeffs: torch.Tensor):
+        self.pw = piecewise
+        self.coeffs = coeffs
+
+    @property
+    def max_parameter(self) -> float:
+        return self.pw.max_parameter
+
+    def eval(self, t: float, derivative_degree: int = 0) -> torch.Tensor:
+        """f^(r)(t) -> [..., dim], t clamped to [0, max_parameter] as the
+        reference callers do."""
+        t = float(np.clip(t, 0.0, self.pw.max_parameter))
+        return eval_curve(self.pw, self.coeffs, [t], derivative_degree)[..., 0, :]
+
+    def max_derivative_magnitude(self, derivative_degree: int, step: float = 0.01):
+        return max_derivative_magnitude(self.pw, self.coeffs, derivative_degree, step)

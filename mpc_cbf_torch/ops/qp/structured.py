@@ -22,7 +22,9 @@ Left out on purpose (TPU-only in the JAX package):
   LU; the batched ``torch.linalg.inv_ex`` here has no such limit;
 - ``pallas_block`` / ``pallas_interpret`` and the backend, x64 and VMEM
   gate of ``_solve``: replaced by one field, ``use_kernel``.
-Not ported yet: ``solve_polished``.
+
+``solve_polished`` runs ``solve`` (the kernel on the card) and then the
+float64 active-set polish of ``polish.py`` on the same device.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch
 from mpc_cbf_torch.types import BIG
 from mpc_cbf_torch.ops.qp.fused_admm import (
     structured_admm_iterations, structured_admm_iterations_ref)
+from mpc_cbf_torch.ops.qp.polish import PolishConfig, make_guards, polish_structured
 
 Tensor = torch.Tensor
 
@@ -76,8 +79,11 @@ class StructuredConfig:
     # chosen for an 80 GB card (the JAX package's 2.5 GB was sized for a
     # 16 GB TPU). 0 = off; k = k lanes.
     lane_chunk: Optional[int] = None
-    # the f64 active-set polish is not ported; True is refused by
-    # StructuredIMPC
+    # f64 active-set polish after the ADMM iterations (ops/qp/polish.py):
+    # certifies a lane when its point is feasible and stationary to 1e-6
+    # (relative) on a right-signed working set, which puts its controls
+    # within ~1e-3 of the exact optimum; lanes that fail certification keep
+    # their ADMM iterate. StructuredIMPC calls solve_polished when it is set.
     polish: bool = False
 
 
@@ -85,7 +91,9 @@ class StructuredSolution(NamedTuple):
     z: Tensor          # [B, n]
     pri_res: Tensor    # [B]
     converged: Tensor  # met the (loose, f32) ADMM bar — NOT the <1e-3 bar
-    certified: Tensor  # always False: only the f64 polish certifies
+    # lane certified to f64 optimality by the active-set polish
+    # (solve_polished only; always False from solve)
+    certified: Tensor
     # duals of the shared/dynamic rows in UNSCALED row coordinates
     # ([B, m_s] / [B, m_d]): feed back as ys0/yd0 to warm-start the next
     # solve of a nearby problem
@@ -98,17 +106,19 @@ class StructuredQPOperator:
 
     P [n, n]; A_s [m_s, n]; eq_mask_s [m_s] marks shared equality rows.
     polish_guard_rows: the slack-nonnegativity rows, which the stiff rho
-    phase scales (the name is the JAX package's, where the polish uses
-    them too).
+    phase scales and the polish keeps pinnable; polish_guard_groups: every
+    row touching each slack column (the polish's coverage invariant; the
+    groups must be disjoint, checked here).
     """
 
-    #: the f32 ADMM bar is NOT an accuracy certificate
+    #: the f32 ADMM bar is NOT an accuracy certificate; per-lane
+    #: certification comes only from solve_polished (Solution.certified)
     certifies = False
 
     def __init__(self, P: np.ndarray, A_s: np.ndarray, eq_mask_s: np.ndarray,
                  m_d: int, cfg: StructuredConfig = StructuredConfig(), *,
                  device: torch.device | str, dtype: torch.dtype,
-                 q_scale_hint: float = 0.0, polish_guard_rows=()):
+                 q_scale_hint: float = 0.0, polish_guard_rows=(), polish_guard_groups=()):
         n = P.shape[0]
         self.n, self.m_s, self.m_d = n, A_s.shape[0], m_d
         self.cfg = cfg
@@ -135,6 +145,13 @@ class StructuredQPOperator:
         gamma = 1.0 / max(np.abs(P64).max(axis=0).mean(), q_hint_scaled, 1e-12)
         P64 *= gamma
         self._guard_rows = tuple(int(i) for i in polish_guard_rows)
+        # unscaled float64 copies for the polish (it re-equilibrates
+        # internally) and the masks of its guard rows and groups
+        self._P0 = torch.as_tensor(np.array(P, np.float64), device=self.device)
+        self._A_s0 = torch.as_tensor(np.array(A_s, np.float64), device=self.device)
+        self._n_eq = int(np.sum(eq_mask_s))
+        self._guards = make_guards(self._guard_rows, polish_guard_groups, self.m_s + m_d,
+                                   self.device)
 
         t = self._tensor
         self.D = t(d)
@@ -213,6 +230,33 @@ class StructuredQPOperator:
             per_lane = 4 * itemsize * self.m_d * self.m_d
             c = 1 << int(np.floor(np.log2(max(self.LANE_CHUNK_BUDGET // per_lane, 256))))
         return 0 if c <= 0 or B <= c else c
+
+    def solve_polished(self, q: Tensor, lb_s: Tensor, ub_s: Tensor,
+                       A_d: Tensor, lb_d: Tensor, ub_d: Tensor,
+                       x0: Optional[Tensor] = None,
+                       ys0: Optional[Tensor] = None,
+                       yd0: Optional[Tensor] = None,
+                       polish_cfg: Optional[PolishConfig] = None) -> StructuredSolution:
+        """ADMM entry (``solve``: the kernel on the card) + f64 active-set
+        polish on the same device.
+
+        Each lane is either certified to f64 optimality (certified and
+        converged True, pri_res = its exact relative violation) or falls
+        back to its ADMM iterate with the ADMM residual and flag. This is
+        the path matching the reference's exact-CPLEX semantics
+        (qpcpp/src/solvers/CPLEX.cpp:35-178)."""
+        sol = self.solve(q, lb_s, ub_s, A_d, lb_d, ub_d, x0=x0, ys0=ys0, yd0=yd0)
+        res = polish_structured(
+            self._P0, self._A_s0, q, lb_s, ub_s, A_d, lb_d, ub_d, sol.z,
+            polish_cfg if polish_cfg is not None else PolishConfig(),
+            max_eq=self._n_eq, guards=self._guards)
+        z = torch.where(res.ok[:, None], res.z, sol.z.to(res.z.dtype))
+        return StructuredSolution(
+            z=z.to(sol.z.dtype),
+            pri_res=torch.where(res.ok, res.viol.to(sol.pri_res.dtype), sol.pri_res),
+            converged=sol.converged | res.ok,
+            certified=res.ok,
+            ys=sol.ys, yd=sol.yd)
 
     def scale(self, q: Tensor, lb_s: Tensor, ub_s: Tensor,
               A_d: Tensor, lb_d: Tensor, ub_d: Tensor):

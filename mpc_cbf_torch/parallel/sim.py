@@ -15,7 +15,8 @@ Semantics (as the JAX package): all agents replan from the same snapshot;
 an agent whose solve yields no flyable curve keeps flying its last one
 (reference ``MPCCBFFormationControl_example.cpp:150-221``).
 
-Not ported yet: ``sharded_rollout`` and the mesh.
+Not ported yet: the mesh and ``sharded_rollout`` (on one device it is
+``rollout`` over the scenario axis, which ``apps/sweep.py`` calls).
 """
 
 from __future__ import annotations

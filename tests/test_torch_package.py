@@ -30,9 +30,10 @@ def _imported_modules(path):
 
 def test_package_imports_no_jax():
     files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 27
-    assert {"admm.py", "cbf_qp.py", "particle_filter.py", "run_sim.py", "config.py"} <= \
-        {f.name for f in files}
+    assert len(files) >= 35
+    assert {"admm.py", "cbf_qp.py", "particle_filter.py", "run_sim.py", "config.py",
+            "polish.py", "linsolve.py", "oracle.py", "sweep.py", "collision_shapes.py",
+            "svm.py", "profiling.py", "logging.py"} <= {f.name for f in files}
     bad = [(f.relative_to(PKG), mod) for f in files for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
     assert not bad, f"mpc_cbf_torch imports the JAX side: {bad}"
@@ -52,9 +53,13 @@ def test_precision_policy():
 
 
 def test_unported_solver_options_raise():
-    ctrl = cases.torch_controller("connectivity", "cpu", torch.float32)
-    with pytest.raises(NotImplementedError):
-        StructuredIMPC(ctrl, StructuredConfig(polish=True))
+    """polish=True builds the polished ADMM (ported); a configuration that is
+    no solver's is refused."""
+    ctrl = cases.torch_controller("fov", "cpu", torch.float32)
+    simpc = StructuredIMPC(ctrl, StructuredConfig(iters=4, iters_tail=2, polish=True))
+    for op in (simpc.op_qp, simpc.op_qp_tail):
+        assert callable(op.solve_polished)
+        assert op._guards.group_mask.shape == (ctrl.S, op.m_s + op.m_d)
     with pytest.raises(NotImplementedError):
         StructuredIMPC(ctrl, object())
 

@@ -177,11 +177,9 @@ def test_add_random_noise_uses_the_generator():
     assert a.pos.std() > 0.01 and not a.vel.any() and a.pos.dtype == F64
 
 
-def test_dense_path_is_not_ported():
-    """The name dates from when structured=False raised; the dense path is
-    ported now, so the same call must run: every agent's own QP through the
-    dense ADMM (tests/test_torch_cbf_sims.py holds it against the JAX
-    package)."""
+def test_dense_path_control_step_runs():
+    """structured=False runs every agent's own QP through the dense ADMM
+    (tests/test_torch_cbf_sims.py holds it against the JAX package)."""
     _, ctrl = _controllers("connectivity", 4)
     init, goals = _start(4)
     coeffs, success, flyable = MultiAgentSim(ctrl, 4).control_step(init, goals)
