@@ -14,25 +14,35 @@ sm_90a: an H100). It
    than a block holds), folded at the 32-agent connectivity shapes (36,
    126, 62) on 1001 and 3 lanes and the 32-agent fov shapes (67, 151, 372)
    on 64 and 3 lanes and, on 64 lanes, for the 550 iterations of the step's
-   longest phase, resident at the shapes (38, 128, 4) and the 3 lanes of
-   run_sim --controller connectivity on a 3-robot team (step 17), streamed
-   at the 24-agent fov shapes (59, 143, 276); resident and streamed also
-   launched by name at the fov shapes and at the 32-agent shapes they ran
-   before those got a kernel of their own; and a NaN lane
-   that must leave every other lane bitwise untouched at each shape whose
-   kernel shares a block or an SM between lanes (the inputs carry inactive
-   rows with rho = 1e-12 and bounds of +-1e20);
+   longest phase, generic at the shapes (38, 128, 4) and the 3 lanes of
+   run_sim --controller connectivity on a 3-robot team (step 17), at every
+   connectivity team of the sweep (35 + R, 125 + R, 2R - 2) on 15 R lanes
+   (step 21; R = 10 also for a 150-iteration phase) and at the 24-agent fov
+   shapes (59, 143, 276) on 64 lanes, the 40- and 64-agent fov teams and a
+   40-robot connectivity team (rows read from device memory); generic also
+   launched by name at the fov flagship and the 32-agent shapes; resident
+   and streamed (the first versions, which generic replaced) launched by
+   name at the fov shapes, the 32-agent shapes and the shapes they ran
+   before generic, and through the wrapper at the two shapes past every
+   generic layout (n = 162 and 165) that they still take; and a NaN lane that must leave every other lane
+   bitwise untouched at each shape whose kernel shares a block or an SM
+   between lanes (the inputs carry inactive rows with rho = 1e-12 and
+   bounds of +-1e20);
 4. times kernel and twin for each rho phase length of a control step (150 +
    50 cold, 32 + 32 warm) at 8192 fov and 32768 connectivity lanes, and at
    the lanes and phase lengths a launch of steps 7 and 7b gets: the folded
    kernel at 4096 lanes (4 x 50 iterations) and at one lane chunk of 2048
-   (550 + 50 + 150 + 50), resident at the 3 lanes of one run_sim team (150
-   + 50 + 150 + 50), streamed at 768; beside each compiled kernel the kernel
-   its shape ran before (resident; streamed for the 32-agent fov shape),
-   which must be the slower one; prints each time beside its bound (the
-   slowest of the float32 operations, the float64 operations and the bytes,
-   from the shapes and the card's peaks; the operations are the fewest a
-   known form of the loop needs, see bound());
+   (550 + 50 + 150 + 50), generic at the 3 lanes of one run_sim team (150
+   + 50 + 150 + 50), at each sweep team's 15 R lanes (the same phases) and
+   at the 24-agent step's 768 lanes; beside each kernel the kernel its shape
+   ran before (resident; streamed for the 32-agent and 24-agent fov
+   shapes), which must be the slower one; prints each time beside its bound
+   (the slowest of the float32 operations, the float64 operations and the
+   bytes, from the shapes and the card's peaks; the operations are the
+   fewest a known form of the loop needs, see bound()), and the
+   microseconds and clocks of one iteration (at the SM clock nvidia-smi
+   reads after the window; the log adds the block-wide barriers the source
+   writes);
 5. drives the main path (StructuredIMPC(FovIMPCCBF) with the structured
    ADMM (iters 200, tail 64) on 8192 lanes of bench.py's fov recipe),
    checks that it launched the tiled kernel 4 times per call and that every
@@ -54,9 +64,9 @@ sm_90a: an H100). It
    numbers;
 7b. runs one fov step of benchmarks/swarm.py's recipe at another team size
    (its second argument): 32 rings of 24 agents, a shape without a compiled
-   kernel and beyond a block's shared memory, so that the streamed kernel
-   stays driven through the wrapper (4 launches); no shipped configuration
-   reaches that kernel;
+   kernel, through the generic kernel (4 launches, asserted) and through the
+   plain loop: usable rates within 0.01, success flags equal on 99 % of the
+   lanes;
 8. holds the f64 IPM on the card against the same solve on the host CPU
    (512 fov lanes: converged flags, z to 1e-3);
 9. drives the f32 Mehrotra IPM (IPM_F32_ENTRY, bench.py's default solver)
@@ -101,7 +111,7 @@ sm_90a: an H100). It
     (--device defaults to cuda): success and solver_success_rate >= 0.95 as
     the JAX package's runner gives on a CPU, ms per replan step of one team
     against the 100 ms budget; --controller connectivity must launch the
-    resident kernel 4 times a step (320 launches: the resident row of the
+    generic kernel 4 times a step (320 launches: the generic row of the
     kernels record);
 18. bench.py's +polish mode, fov and connectivity at 8192 lanes:
     StructuredConfig(iters=200, iters_tail=64, polish=True), the f32 ADMM (tiled
@@ -122,10 +132,11 @@ sm_90a: an H100). It
     within 1e-4 of the JAX package's deviation;
 21. the reference's grid through mpc_cbf_torch.apps.sweep.main, one call a
     cell: connectivity teams of 2, 4, 6, 8, 10 robots x 15 seeds for 6 s (the
-    resident kernel, 4 launches a step, asserted; each team's shape is also
+    generic kernel, 4 launches a step, asserted; each team's shape is also
     held against the twin and timed alone at 15 R lanes: the
-    resident_sweep_r<R> rows), fov teams of 8 at 120, 240 and 360 degrees (the
-    f32 IPM, no kernel): wall time, success and success_ref shares, launches.
+    generic_sweep_r<R> rows), fov teams of 8 at 120, 240 and 360 degrees (the
+    f32 IPM, no kernel): wall time, success and success_ref shares (every
+    connectivity cell must keep 1.0 for both), launches.
 Any failure raises (exit code 1). The last three lines are the card's name
 and power limit again, a JSON record of the kernels and {"ok": true,
 "device": {...}}. Without a GPU, or without
@@ -146,15 +157,19 @@ connectivity at 32768 lanes 19.5-19.7 ms (bound 2.45 ms, 12.6 %; resident
 the 32-agent connectivity step's four launches at 4096 lanes (bound 0.33 ms,
 9.6-9.9 %; resident 10.3 ms) and 29.5-30.7 ms for one 2048-lane chunk of the
 32-agent fov step (bound 3.43 ms, 11.2-11.6 %; streamed 586.5-591.4 ms, its
-twin 627-787 ms); resident 1.38-1.42 ms for the four launches of one run_sim
-connectivity step on 3 lanes (bound 3.6e-4 ms: three blocks on a 132-SM
-card), streamed 118.9-120.6 ms at the 24-agent fov shapes on 768 lanes (bound
-0.91 ms, 0.8 %); fov ADMM usable 0.7097 (plain route 0.7095), 150-415 ms
+twin 627-787 ms); generic 0.55 ms for the four launches of one run_sim
+connectivity step on 3 lanes (1.38 µs, ~2740 clocks and 3 barriers an
+iteration; bound 3.6e-4 ms: three blocks on a 132-SM card; resident 1.30 ms,
+3.25 µs and 8 barriers), 0.55-0.70 ms at the sweep's teams on 15 R lanes
+(resident 1.25-1.63 ms), 11.4-12.0 ms at the 24-agent fov shapes on 768
+lanes (bound 0.91 ms, 8 %; streamed 118.4-121.5 ms); fov ADMM usable 0.7097 (plain
+route 0.7095), 150-415 ms
 per call; connectivity ADMM usable 0.9933, 26-31 ms; 32-agent connectivity
 usable 1.0000, 36-60 ms (f32 IPM: 1.0000, 423-625 ms); 32-agent fov usable
 0.9900 with the kernel and with the plain loop, 0.82-1.24 s (1.8-2.4 s with
 the streamed kernel), peak 6.35 GiB (f32 IPM: usable 1.0000, 494-903 ms,
-peak 1.39 GiB); 24-agent fov usable 0.9935, 299-441 ms; λ₂ connectivity
+peak 1.39 GiB); 24-agent fov usable 0.9935 through the generic kernel and
+the plain loop, flags equal on every lane; λ₂ connectivity
 usable 0.5292 on bench.py's random teams
 (0.98 where the λ₂ row is on, 0.29 under the hard CLF rows; the JAX package
 gives the same flags), 47-66 ms a call; the f64 IPM on the card within
@@ -179,11 +194,11 @@ connectivity +polish usable 0.9998 (raw 0.9929), certified 0.9993, 0.7-2.2 s
 MAGMA's LU row swaps the largest kernel; the polish on the card equal to the
 host's (flags on every lane, z within 3e-12); certified lanes within 1e-3 of
 the oracle but connectivity lane 120 (1.247e-3, the JAX package 1.249e-3);
-the sweep's connectivity cells 0.5-1.3 s for 60 steps (resident 1.32-1.76 ms
+the sweep's connectivity cells 0.5-1.7 s for 60 steps (generic 0.55-0.70 ms
 a step's four launches at 15 R lanes), all seeds succeed, fov cells 13-31 s.
 5 to 10 minutes in all (353-432 s in the runs with the 32-agent and team
-phases above, 343-573 s with the slice-6 phases); every phase logs its wall
-seconds.
+phases above, 343-573 s with the slice-6 phases, 541 s with the generic
+kernel's rows); every phase logs its wall seconds.
 """
 
 from __future__ import annotations
@@ -226,9 +241,14 @@ FOV_SHAPES = dict(n=43, m_s=127, m_d=84)      # fov flagship: 36 + 7 slack colum
 CONN_SHAPES = dict(n=36, m_s=126, m_d=6)      # 4-robot connectivity
 SWARM_CONN_SHAPES = dict(n=36, m_s=126, m_d=62)   # 32-agent connectivity
 SWARM_FOV_SHAPES = dict(n=67, m_s=151, m_d=372)   # 32-agent fov: 36 + 31 slack columns
-# shapes without a compiled kernel: they take the two kernels of any shape
-RUN_SIM_CONN_SHAPES = dict(n=38, m_s=128, m_d=4)  # run_sim connectivity, 3 robots: resident
-TEAM24_FOV_SHAPES = dict(n=59, m_s=143, m_d=276)  # 24-agent fov: streamed
+# shapes without a compiled kernel: the generic kernel's (resident and streamed before it)
+RUN_SIM_CONN_SHAPES = dict(n=38, m_s=128, m_d=4)  # run_sim connectivity, 3 robots
+TEAM24_FOV_SHAPES = dict(n=59, m_s=143, m_d=276)  # 24-agent fov
+# fov teams of 40 and 64 agents and a 40-robot connectivity team: generic's
+# FromMemory layout (the streamed kernel held them before it)
+TEAM40_FOV_SHAPES = dict(n=75, m_s=159, m_d=468)
+TEAM64_FOV_SHAPES = dict(n=99, m_s=183, m_d=756)
+TEAM40_CONN_SHAPES = dict(n=75, m_s=165, m_d=78)
 LAMBDA2_SHAPES = dict(n=36, m_s=126, m_d=14)      # 4-robot connectivity with the λ₂/CLF rows
 BASE_CONFIG = "configs/base_config.json"
 TASK_3R = "configs/baseline/3r/rotate.json"
@@ -238,8 +258,12 @@ KERNEL = fused_admm.structured_admm_iterations
 KW = dict(sigma=1e-6, alpha=1.6)
 SOURCES = {"tiled": "mpc_cbf_torch/csrc/structured_admm_tiled.cu",
            "folded": "mpc_cbf_torch/csrc/structured_admm_folded.cu",
-           "resident": "mpc_cbf_torch/csrc/structured_admm.cu",
-           "streamed": "mpc_cbf_torch/csrc/structured_admm.cu"}
+           "generic": "mpc_cbf_torch/csrc/structured_admm_generic.cu"}
+#: block-wide barriers of one iteration as the sources write them (generic:
+#: structured_admm_generic.cu; resident, streamed: structured_admm.cu; folded:
+#: structured_admm_folded.cu): a count read from the code, printed beside the
+#: measured times in the log only
+BARRIERS = {"generic": 3, "resident": 8, "streamed": 8, "folded": 5}
 # the card's peaks, NVIDIA's H100 SXM data sheet at 700 W: float32 outside the
 # tensor cores, float64 on the tensor cores (the tiled kernel runs their
 # mma.sync.m8n8k4.f64), HBM3
@@ -296,10 +320,15 @@ def sync_clock() -> float:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn over reps runs, after one warm-up run."""
+    """Mean device time of fn over reps runs, after one warm-up run. The card
+    first spins for about a millisecond (torch.cuda._sleep), so that the host
+    queues the launches while it is busy: a launch of 0.1 ms then starts
+    right after the one before it, and a pause of the host does not fall
+    into the window."""
     fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -357,16 +386,34 @@ def check_kernel(iters: int = 40) -> dict:
         ("folded_swarm_connectivity", "32-agent connectivity, 3 lanes", SWARM_CONN_SHAPES, 3, None),
         ("folded_swarm_fov", "32-agent fov", SWARM_FOV_SHAPES, 64, None),
         ("folded_swarm_fov", "32-agent fov, 3 lanes", SWARM_FOV_SHAPES, 3, None),
-        ("resident", "run_sim's 3-robot connectivity", RUN_SIM_CONN_SHAPES, 3, None),
+        ("generic", "run_sim's 3-robot connectivity", RUN_SIM_CONN_SHAPES, 3, None),
+        ("generic", "fov through the generic kernel", FOV_SHAPES, 100, "generic"),
+        ("generic", "32-agent connectivity through the generic kernel", SWARM_CONN_SHAPES, 64,
+         "generic"),
+        ("generic", "32-agent fov through the generic kernel (A_d from memory)",
+         SWARM_FOV_SHAPES, 64, "generic"),
+        # the first versions, which generic replaced: launched by name only
         ("resident", "fov through the first version", FOV_SHAPES, 100, "resident"),
         ("resident", "32-agent connectivity through the first version", SWARM_CONN_SHAPES, 64,
          "resident"),
+        ("resident", "run_sim's 3-robot connectivity through the first version",
+         RUN_SIM_CONN_SHAPES, 3, "resident"),
         ("tiled_lambda2", "connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES, 1001, None),
         ("tiled_lambda2", "connectivity with the λ₂/CLF rows, fewer lanes than a block",
          LAMBDA2_SHAPES, 3, None),
-        *(("resident_sweep_r%d" % R, f"sweep connectivity team of {R}", sweep_shapes(R),
+        *(("generic_sweep_r%d" % R, f"sweep connectivity team of {R}", sweep_shapes(R),
            SWEEP_SEEDS * R, None) for R in SWEEP_SIZES),
-        ("streamed", "24-agent fov", TEAM24_FOV_SHAPES, 64, None),
+        ("generic_sweep_r10", "sweep connectivity team of 10, a cold phase",
+         sweep_shapes(10), SWEEP_SEEDS * 10, None, max(RUN_SIM_PHASES)),
+        ("generic_team24", "24-agent fov", TEAM24_FOV_SHAPES, 64, None),
+        ("generic_team24", "40-agent fov (rows from device memory)", TEAM40_FOV_SHAPES, 64, None),
+        ("generic_team24", "64-agent fov (rows from device memory)", TEAM64_FOV_SHAPES, 16, None),
+        ("generic", "40-robot connectivity (rows from device memory)", TEAM40_CONN_SHAPES, 64,
+         None),
+        # n above every generic layout: the first versions still take such shapes
+        ("resident", "n = 162, no generic layout", dict(n=162, m_s=2, m_d=2), 3, None),
+        ("streamed", "n = 165, no generic layout", dict(n=165, m_s=4, m_d=4), 3, None),
+        ("streamed", "24-agent fov through the first version", TEAM24_FOV_SHAPES, 64, "streamed"),
         ("streamed", "fov through the streamed kernel", FOV_SHAPES, 100, "streamed"),
         ("streamed", "32-agent fov through the streamed kernel", SWARM_FOV_SHAPES, 64, "streamed"),
         # the longest phase of the 32-agent fov step: two float32 loops after 550 iterations
@@ -383,7 +430,7 @@ def check_kernel(iters: int = 40) -> dict:
             took = [v for v, c in KERNEL.launches_by_variant.items() if c]
             if took != [row.split("_")[0]]:
                 raise AssertionError(f"{what}: launched {took}, expected the {row} kernel")
-        else:                                 # a generic kernel on a shape that takes another
+        else:                                 # a kernel launched by name
             out_k = fused_admm.launch_variant(fused_admm._lib(), variant, args, iters=n_it, **KW)
             took = [variant]
         out_t = fused_admm.structured_admm_iterations_ref(*args, iters=n_it, **KW)
@@ -396,7 +443,8 @@ def check_kernel(iters: int = 40) -> dict:
     # a NaN lane leaves every other lane, those of its block too, bitwise untouched
     for what, shapes, bad_lane in (("fov", FOV_SHAPES, 5), ("connectivity", CONN_SHAPES, 10),
                                    ("connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES, 10),
-                                   ("32-agent connectivity", SWARM_CONN_SHAPES, 10)):
+                                   ("32-agent connectivity", SWARM_CONN_SHAPES, 10),
+                                   ("sweep connectivity team of 10", sweep_shapes(10), 10)):
         args = phase_inputs(37, seed=2, shapes=shapes)
         clean = KERNEL(*args, iters=iters, **KW)
         args[3] = args[3].clone()
@@ -418,6 +466,28 @@ def bound_text(b_ms: float, k_ms: float) -> str:
     small = b_ms < 0.01
     return (f"bound {b_ms:.3e} ms" if small else f"bound {b_ms:.3f} ms") + \
         f" ({100 * b_ms / k_ms:.{3 if small else 1}f} % of it reached)"
+
+
+def sm_clock_mhz() -> float:
+    """The SM clock nvidia-smi reads now (MHz)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+
+
+def kernel_of_shape(shapes) -> str:
+    """The variant the wrapper launches for these shapes."""
+    lib = fused_admm._lib()
+    return fused_admm.VARIANTS[lib.structured_admm_variant(*shapes.values())]
+
+
+def per_iter_text(ms: float, its: int, mhz: float, variant: str) -> str:
+    """'x µs, y clocks at z MHz, b barriers' for one iteration of a step of
+    ``its`` iterations that took ``ms``."""
+    us = ms * 1e3 / its
+    bars = BARRIERS.get(variant)
+    return (f"{us:.3f} µs, {us * mhz:.0f} clocks at {mhz:.0f} MHz"
+            + (f" ({bars} block-wide barriers in the source)" if bars else ""))
 
 
 def time_phases(what: str, shapes, B: int, phases=PHASES, replaced: str | None = None,
@@ -444,15 +514,20 @@ def time_phases(what: str, shapes, B: int, phases=PHASES, replaced: str | None =
             + (f", {replaced} kernel {f_ms:.3f} ms" if replaced else ""))
     k_sum, t_sum = (sum(per[i][j] for i in phases) for j in (0, 1))
     b_ms, by = bound(B, **shapes, phases=phases)
-    out = dict(ms=k_sum, plain_ms=t_sum, bound_ms=b_ms, bound_by=by, lanes=B, phases=list(phases))
+    mhz = sm_clock_mhz()                      # read right after the window
+    its = sum(phases)
+    variant = kernel_of_shape(shapes)
+    out = dict(ms=k_sum, plain_ms=t_sum, bound_ms=b_ms, bound_by=by, lanes=B, phases=list(phases),
+               us_per_iter=k_sum * 1e3 / its, clocks_per_iter=k_sum * 1e3 / its * mhz)
     msg = (f"{what}, {len(phases)} phases {phases} at B={B}: kernel {k_sum:.3f} ms, "
            f"{bound_text(b_ms, k_sum)}, by {by} (peaks {PEAK_F32 / 1e12:.0f} / "
            f"{PEAK_F64 / 1e12:.0f} TFLOP/s float32 / float64, {PEAK_BYTES / 1e12:.2f} TB/s); "
-           f"twin {t_sum:.3f} ms")
+           f"twin {t_sum:.3f} ms; an iteration {per_iter_text(k_sum, its, mhz, variant)}")
     if replaced:
         f_sum = sum(per[i][2] for i in phases)
         out.update(replaced=replaced, replaced_ms=f_sum)
-        msg += f"; the {replaced} kernel it replaced {f_sum:.3f} ms ({f_sum / k_sum:.2f}x)"
+        msg += (f"; the {replaced} kernel it replaced {f_sum:.3f} ms ({f_sum / k_sum:.2f}x), an "
+                f"iteration {per_iter_text(f_sum, its, mhz, replaced)}")
         if f_sum <= k_sum:
             raise AssertionError(f"{what}: the kernel is not faster than the {replaced} kernel "
                                  "it replaced")
@@ -1087,11 +1162,12 @@ def sweep_shapes(R: int) -> dict:
 def sweep_grid(rows: dict) -> None:
     """mpc_cbf_torch.apps.sweep.main on the card, one call per grid cell:
     --controller connectivity --sizes R --seeds 15 --sim-runtime 6.0 for R
-    in SWEEP_SIZES (the resident kernel, 4 launches a step, asserted), then
+    in SWEEP_SIZES (the generic kernel, 4 launches a step, and success and
+    success_ref 1.0 on every seed, asserted), then
     --controller fov --sizes 8 --fovs F --seeds 15 (the f32 IPM, no kernel)
     for F in 120, 240, 360. Prints each cell's wall time, success and
     success_ref shares and launches; fills the launches of the
-    resident_sweep_r<R> rows."""
+    generic_sweep_r<R> rows."""
     out = _build.BUILD_ROOT / "sweep.jsonl"
     out.parent.mkdir(parents=True, exist_ok=True)
     cells = [("connectivity", R, None) for R in SWEEP_SIZES] + \
@@ -1119,10 +1195,12 @@ def sweep_grid(rows: dict) -> None:
             f"{np.mean([r['solver_success_rate'] for r in recs]):.4f}, min separation "
             f"{min(r['min_separation'] for r in recs):.3f} m; structured-kernel launches {by}")
         if controller == "connectivity":
-            if by != {"resident": len(RUN_SIM_PHASES) * steps}:
-                raise AssertionError(f"sweep connectivity R={R} launched {by}, expected the resident "
+            if by != {"generic": len(RUN_SIM_PHASES) * steps}:
+                raise AssertionError(f"sweep connectivity R={R} launched {by}, expected the generic "
                                      f"kernel {len(RUN_SIM_PHASES)} times a step")
-            rows[f"resident_sweep_r{R}"]["launches"] = by["resident"]
+            if not all(r["success"] and r["success_ref"] for r in recs):
+                raise AssertionError(f"sweep connectivity R={R}: a seed failed")
+            rows[f"generic_sweep_r{R}"]["launches"] = by["generic"]
         elif by:
             raise AssertionError(f"sweep fov launched the structured kernel: {by}")
 
@@ -1432,7 +1510,7 @@ def command_line() -> int:
     family and the particle filter. Bars (what the JAX package's runner
     reaches on these rotate instances): success and solver_success_rate >= 0.95.
     Returns the kernel launches of --controller connectivity, which must be
-    the resident kernel's, one per phase of RUN_SIM_PHASES and step."""
+    the generic kernel's, one per phase of RUN_SIM_PHASES and step."""
     variants = [("connectivity",), ("connectivity", "--enable-connectivity"), ("fov",),
                 ("single-shot",), ("mpc",), ("cbf-connectivity",), ("cbf-fov",),
                 ("cbf-fov", "--pf")]
@@ -1469,10 +1547,10 @@ def command_line() -> int:
             raise AssertionError(f"run_sim {name} did not launch the structured ADMM kernel")
         if name == "connectivity":
             launches = KERNEL.launches
-            if KERNEL.launches_by_variant["resident"] != launches \
+            if KERNEL.launches_by_variant["generic"] != launches \
                     or launches != len(RUN_SIM_PHASES) * summary["steps"]:
                 raise AssertionError(f"run_sim {name} launched {KERNEL.launches_by_variant} in "
-                                     f"{summary['steps']} steps, expected the resident kernel "
+                                     f"{summary['steps']} steps, expected the generic kernel "
                                      f"{len(RUN_SIM_PHASES)} times a step")
     return launches
 
@@ -1513,16 +1591,17 @@ def main() -> int:
             # the 4-robot connectivity step with the λ₂/CLF rows
             "tiled_lambda2": time_phases("connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES,
                                          32768, replaced="resident"),
-            # the two kernels of any shape, at the lanes a launch gets from run_sim's
-            # 3-robot team (the command-line phase) and from the 24-agent step below
-            "resident": time_phases("run_sim's 3-robot connectivity", RUN_SIM_CONN_SHAPES, 3,
-                                    phases=RUN_SIM_PHASES),
-            "streamed": time_phases("24-agent fov", TEAM24_FOV_SHAPES, 768,
-                                    phases=SWARM_PHASES["fov"], reps=1),
+            # the generic kernel, at the lanes a launch gets from run_sim's 3-robot team
+            # (the command-line phase) and from the 24-agent step below
+            "generic": time_phases("run_sim's 3-robot connectivity", RUN_SIM_CONN_SHAPES, 3,
+                                   phases=RUN_SIM_PHASES, replaced="resident"),
+            "generic_team24": time_phases("24-agent fov", TEAM24_FOV_SHAPES, 768,
+                                          phases=SWARM_PHASES["fov"], replaced="streamed",
+                                          reps=1),
             # the sweep's connectivity teams: 15 seeds x R robots a launch
-            **{f"resident_sweep_r{R}": time_phases(
+            **{f"generic_sweep_r{R}": time_phases(
                 f"sweep connectivity team of {R}", sweep_shapes(R), SWEEP_SEEDS * R,
-                phases=RUN_SIM_PHASES) for R in SWEEP_SIZES},
+                phases=RUN_SIM_PHASES, replaced="resident") for R in SWEEP_SIZES},
         }
     rows = phase("kernels timed alone", time_kernels)
     rows["tiled_fov"]["launches"] = phase("fov ADMM step", fov_main_path)
@@ -1536,8 +1615,9 @@ def main() -> int:
     for mode in ("connectivity", "fov"):
         phase(f"32-agent {mode} step, f32 IPM", swarm_ipm_path, mode, *swarm[mode],
               rows[f"folded_swarm_{mode}"]["step"])
-    rows["streamed"]["launches"] = phase(
-        "24-agent fov step", swarm_path, "fov", *team24, "streamed", rows["streamed"])
+    rows["generic_team24"]["launches"] = phase(
+        "24-agent fov step", swarm_path, "fov", *team24, "generic", rows["generic_team24"],
+        plain=True)
     del swarm, team24
     torch.cuda.empty_cache()
     rows["tiled_lambda2"]["launches"] = phase("λ₂ connectivity step", lambda2_path,
@@ -1551,7 +1631,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("batched eigh", eigh_check)
     phase("sweep loops", sweep_loops)
-    rows["resident"]["launches"] = phase("command line", command_line)
+    rows["generic"]["launches"] = phase("command line", command_line)
     polished = {mode: phase(f"{mode} +polish", polish_path, mode)
                 for mode in ("fov", "connectivity")}
     phase("polish, card against host", polish_card_vs_host)
@@ -1568,7 +1648,8 @@ def main() -> int:
         "launches": r["launches"], "max_abs_err": errs[row], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None, "lanes": r["lanes"], "phases": r["phases"],
-        "replaced": r.get("replaced"), "replaced_ms": r.get("replaced_ms")}
+        "replaced": r.get("replaced"), "replaced_ms": r.get("replaced_ms"),
+        "us_per_iter": r["us_per_iter"], "clocks_per_iter": r["clocks_per_iter"]}
         for row, r in rows.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,7 @@
 // Fused structured-ADMM iteration loop, hand-written for Hopper (sm_90a):
-// the entry point and the two kernels that take any shape.
+// the entry point, and the two first versions of the kernel (resident,
+// streamed), which run where a caller names them or no other kernel holds
+// the shape.
 //
 // Replaces the Pallas TPU kernel mpc_cbf_tpu/ops/qp/pallas_admm.py::_kernel
 // (launched by structured_admm_iterations, pl.pallas_call at :170). One
@@ -19,26 +21,31 @@
 // What bounds the loop on an H100 is its arithmetic, not its bytes: every
 // operand is read from device memory once a launch and then used in each of
 // the 32 to 550 iterations (the count is worked out in
-// structured_admm_tiled.cu). Four kernels, chosen from the shape alone by
+// structured_admm_tiled.cu). Three kernels, chosen from the shape alone by
 // structured_admm_variant():
 //   tiled     structured_admm_tiled.cu: compiled per shape (fov, connectivity),
 //             several lanes a block, A_d in registers. The main paths run it.
 //   folded    structured_admm_folded.cu: compiled per shape (32-agent fov and
 //             connectivity), one lane a block, [A_s; A_d] in registers, WK
 //             folded into the lane's C = (I - WK A_d) Ms_inv.
-//   resident  below: one block per lane, every operand of the lane in
-//             dynamic shared memory (fov: ~88 KB, two blocks an SM). The
-//             first version of the port; it stays near 3 % of the bound
+//   generic   structured_admm_generic.cu: the folded form for shapes known
+//             only at run time, three barriers an iteration; every other shape
+//             to n = 160 (the sweep's and run_sim's connectivity teams, odd
+//             team sizes).
+// Two more, below: the first versions, which the generic kernel replaced.
+// structured_admm_variant() picks them only for a shape that no layout of
+// the generic kernel holds (n above 160, or thousands of rows) and that they
+// held before it; otherwise they run when named, so that a measurement can
+// time them beside it.
+//   resident  one block per lane, every operand of the lane in dynamic shared
+//             memory (fov: ~88 KB, two blocks an SM); near 3 % of the bound
 //             (two shared-memory loads per multiply-add, eight block-wide
-//             barriers an iteration around stages of 43 to 211 threads) and
-//             serves the shapes without an instantiation.
-//   streamed  below: for shapes without an instantiation whose operands
-//             exceed the 227 KB a block may have (a 24-agent fov team: n = 59,
-//             m_d = 276). A_s, Ms_inv and the
-//             vectors stay in shared memory; the lane's A_d and WK stay in
-//             device memory and are read again every iteration, one warp a
-//             row with coalesced loads, from L2 while the resident blocks'
-//             operands fit it. Slow and right: 2 (n m_d) floats, three
+//             barriers an iteration around stages of 43 to 211 threads).
+//   streamed  for shapes whose first-version operands exceed the 227 KB a
+//             block may have (a 24-agent fov team: n = 59, m_d = 276). A_s,
+//             Ms_inv and the vectors stay in shared memory; the lane's A_d and
+//             WK stay in device memory and are read again every iteration,
+//             one warp a row with coalesced loads. 2 (n m_d) floats, three
 //             times and once an iteration, set its pace.
 //
 // Built without --use_fast_math: inactive dynamic rows carry rho = 1e-12
@@ -371,17 +378,21 @@ int launch_per_lane(Kernel kernel, size_t bytes, const AdmmArgs& a, cudaStream_t
 }  // namespace
 
 // The kernel a shape takes: tiled or folded where there is an instantiation,
-// resident where the lane's operands fit a block's shared memory, else
-// streamed.
+// else generic. A shape that no layout of the generic kernel holds (n above
+// 160, or thousands of rows) takes the first version that holds it, resident
+// then streamed, as it did before generic; kNone where neither does.
 extern "C" int structured_admm_variant(int n, int m_s, int m_d) {
   if (structured_admm_tiled_has(n, m_s, m_d)) return kTiled;
   if (structured_admm_folded_has(n, m_s, m_d)) return kFolded;
-  return Layout(n, m_s, m_d, kThreads).bytes(n, m_d) <= kMaxSharedBytes ? kResident : kStreamed;
+  if (structured_admm_generic_has(n, m_s, m_d)) return kGeneric;
+  if (Layout(n, m_s, m_d, kThreads).bytes(n, m_d) <= kMaxSharedBytes) return kResident;
+  if (StreamedLayout(n, m_s, m_d).bytes(n, m_s, m_d) <= kMaxSharedBytes) return kStreamed;
+  return kNone;
 }
 
 // Launches one rho phase on `stream` of `device` (arrays as in AdmmArgs).
 // variant < 0: the kernel of structured_admm_variant(); else that kernel,
-// for measurements. Returns a cudaError_t (0 = launched). The calling
+// for measurements and tests. Returns a cudaError_t (0 = launched). The calling
 // thread's current device is left as it was found.
 extern "C" int structured_admm_launch(
     const float* Ms_inv, const float* A_s, const float* rho_s, const float* q,
@@ -408,6 +419,8 @@ extern "C" int structured_admm_launch(
     rc = structured_admm_tiled_launch(a, s);
   else if (variant == kFolded)
     rc = structured_admm_folded_launch(a, s);
+  else if (variant == kGeneric)
+    rc = structured_admm_generic_launch(a, s);
   else if (variant == kResident)
     rc = launch_per_lane(resident_kernel, Layout(n, m_s, m_d, kThreads).bytes(n, m_d), a, s);
   else if (variant == kStreamed)

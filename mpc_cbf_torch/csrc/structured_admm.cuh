@@ -1,8 +1,11 @@
 // Shared declarations of the structured-ADMM kernels (structured_admm.cu:
-// the entry point and the two runtime-dimension kernels;
+// the entry point and the two first-version kernels, kept for comparison and
+// for the shapes no other kernel holds;
 // structured_admm_tiled.cu: the kernel specialised per shape, several lanes a
 // block; structured_admm_folded.cu: one lane a block, the stacked matrix in
-// registers, the Woodbury correction folded into one matrix).
+// registers, the Woodbury correction folded into one matrix;
+// structured_admm_generic.cu: the same folded form for shapes known only at
+// run time, the kernel of the other shapes).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,8 +23,9 @@ struct AdmmArgs {
   float sigma, alpha;
 };
 
-// Kernel variants; structured_admm_variant() picks one from the shape alone.
-enum AdmmVariant { kTiled = 0, kResident = 1, kStreamed = 2, kFolded = 3 };
+// Kernel variants; structured_admm_variant() picks one from the shape alone
+// (kResident or kStreamed only for a shape no layout of kGeneric holds).
+enum AdmmVariant { kNone = -1, kTiled = 0, kResident = 1, kStreamed = 2, kFolded = 3, kGeneric = 4 };
 
 // NaN-propagating clip with the semantics of torch.clamp / jnp.clip
 // (max with lo first, then min with hi). fminf/fmaxf would drop a NaN and
@@ -50,3 +54,9 @@ int structured_admm_tiled_launch(const AdmmArgs& a, cudaStream_t stream);
 // structured_admm_folded.cu: the same pair for its instantiations.
 bool structured_admm_folded_has(int n, int m_s, int m_d);
 int structured_admm_folded_launch(const AdmmArgs& a, cudaStream_t stream);
+// structured_admm_generic.cu: whether one of its layouts holds the shape
+// (n <= 160 and C with the lane's vectors within a block's shared memory:
+// every fov team to 84 agents, every connectivity team to 89 robots), and its
+// launch.
+bool structured_admm_generic_has(int n, int m_s, int m_d);
+int structured_admm_generic_launch(const AdmmArgs& a, cudaStream_t stream);

@@ -9,9 +9,16 @@ use by ``mpc_cbf_torch._build``), chosen from the shape alone (``VARIANTS``):
 fov and connectivity control steps), ``folded`` for those of
 ``csrc/structured_admm_folded.cu`` (the 32-agent fov and connectivity
 teams: one lane a block, the Woodbury correction S - WK (Ad S) folded into
-one float64 matrix a lane, C = (I - WK Ad) Ms_inv), ``resident`` for any
-other shape whose lane's operands fit one block's shared memory,
-``streamed`` for anything larger. On CPU tensors it runs the twin
+one float64 matrix a lane, C = (I - WK Ad) Ms_inv), ``generic`` for the
+other shapes to n = 160 (``csrc/structured_admm_generic.cu``: the same
+folded form for shapes known only at run time, such as the sweep's and
+run_sim's connectivity teams and the fov teams of other sizes).
+``resident`` and ``streamed``, the first versions of the kernel
+(``csrc/structured_admm.cu``), take only the shapes that no layout of
+``generic`` holds and that they held before it (n above 160, or thousands
+of rows); ``launch_variant`` also runs them by name, to time them beside the
+kernel that replaced them. A shape no kernel holds (a lane past a block's
+shared memory in every kernel) raises. On CPU tensors it runs the twin
 ``structured_admm_iterations_ref``, which is the scan body of
 ``mpc_cbf_tpu/ops/qp/structured.py:442-463`` as a Python loop. Any other
 CUDA input raises: there is no silent fallback.
@@ -38,7 +45,8 @@ from mpc_cbf_torch import _build
 
 Tensor = torch.Tensor
 #: kernel variants, indexed by the code ``structured_admm_variant`` returns
-VARIANTS = ("tiled", "resident", "streamed", "folded")
+#: (``AdmmVariant`` in csrc/structured_admm.cuh; -1: no kernel holds the shape)
+VARIANTS = ("tiled", "resident", "streamed", "folded", "generic")
 State5 = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]
 
 
@@ -158,7 +166,12 @@ def structured_admm_iterations(
         return tuple(torch.empty((0, k), dtype=torch.float32, device=qb.device)
                      for k in (n, m_s, m_d, m_s, m_d))
     lib = _lib()
-    variant = VARIANTS[lib.structured_admm_variant(n, m_s, m_d)]
+    code = lib.structured_admm_variant(n, m_s, m_d)
+    if code < 0:
+        raise ValueError(f"structured_admm_iterations: no kernel holds the shape (n={n}, "
+                         f"m_s={m_s}, m_d={m_d}): a lane's operands exceed a block's "
+                         "shared memory")
+    variant = VARIANTS[code]
     outs = launch_variant(lib, variant, args, iters=iters, sigma=sigma, alpha=alpha)
     structured_admm_iterations.launches += 1
     structured_admm_iterations.launches_by_variant[variant] += 1

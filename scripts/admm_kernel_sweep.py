@@ -1,10 +1,11 @@
-"""Time other block layouts of the compiled-per-shape structured-ADMM kernels
-on the card.
+"""Time other block layouts of the structured-ADMM kernels on the card.
 
     python3 scripts/admm_kernel_sweep.py [--fov LAYOUT ...] [--conn LAYOUT ...]
                                          [--lambda2 LAYOUT ...]
                                          [--swarm-conn LAYOUT ...] [--swarm-fov LAYOUT ...]
                                          [--folded-at fov|lambda2 LAYOUT ...]
+                                         [--generic LAYOUT ...] [--generic-team24 LAYOUT ...]
+                                         [--generic-wide LAYOUT ...] [--timing-check]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and nvcc.
 The package's kernel sources carry one layout per shape: the ``Shape<...>``
@@ -32,8 +33,24 @@ them. --folded-at tries the folded kernel at a shape the package gives to
 the tiled kernel (fov or lambda2): the copy's ``SwarmConn`` line of the
 folded source becomes that shape with the layouts T,RG,CG,KC, launched by
 name beside the tiled kernel of the same copy (so not together with
---swarm-conn, which rewrites the same line). The package and its build are
-left as they are.
+--swarm-conn, which rewrites the same line). --generic times the generic
+kernel (csrc/structured_admm_generic.cu) at the sweep's team of 10 (45, 135,
+18) on 150 lanes and run_sim's 3-robot team (38, 128, 4) on 3 lanes (150 +
+50 + 150 + 50 iterations), beside the resident kernel it replaced, with the
+copy's ``RegN64`` line (the one both shapes take) changed; --generic-team24
+at the 24-agent fov team (59, 143, 276) on 768 lanes (550 + 50 + 150 + 50),
+beside the streamed kernel, with the ``RegN64Tall`` line changed;
+--generic-wide at the fov teams of 40 and 64 agents (75, 159, 468), (99,
+183, 756) on 768 lanes (the same phases), beside the streamed kernel, with
+the ``FromMemory`` line changed. A LAYOUT of
+the generic kernel is TC,MAXW,REG[,P[,MINB]]: GenericShape<TC, MAXW, REG, P,
+MINB> (column slots a lane, warps a block at most, [A_s; A_d] in registers
+(true) or read each iteration (false), threads a row of C (default 4),
+blocks an SM for the launch bounds (default 1)). --timing-check builds
+nothing: it times the package's generic kernel at the sweep's team of 10 on
+150 lanes, one 50- and one 150-iteration phase, ten windows of each with the
+card spun first (as ``cuda_ms`` does) and ten without, and prints every
+window. The package and its build are left as they are.
 """
 
 from __future__ import annotations
@@ -59,6 +76,8 @@ PHASES = (150, 50, 32, 32)
 #: in the source, the source, its variant, the variant timed beside it
 Target = collections.namedtuple("Target", "lanes shape phases alias source variant beside")
 TILED, FOLDED = "structured_admm_tiled.cu", "structured_admm_folded.cu"
+GENERIC = "structured_admm_generic.cu"
+RUN_SIM_PHASES = (150, 50, 150, 50)
 SHAPES = {"fov": Target(8192, (43, 127, 84), PHASES, "Fov", TILED, "tiled", "resident"),
           "conn": Target(32768, (36, 126, 6), PHASES, "Conn", TILED, "tiled", "resident"),
           "lambda2": Target(32768, (36, 126, 14), PHASES, "ConnLambda2", TILED, "tiled", "resident"),
@@ -69,14 +88,34 @@ SHAPES = {"fov": Target(8192, (43, 127, 84), PHASES, "Fov", TILED, "tiled", "res
           # --folded-at: the folded kernel at shapes the package gives to the tiled kernel
           "fov_folded": Target(8192, (43, 127, 84), PHASES, "SwarmConn", FOLDED, "folded", "tiled"),
           "lambda2_folded": Target(32768, (36, 126, 14), PHASES, "SwarmConn", FOLDED, "folded",
-                                   "tiled")}
+                                   "tiled"),
+          # --generic: both shapes take the RegN64 line of the generic source
+          "generic_sweep_r10": Target(150, (45, 135, 18), RUN_SIM_PHASES, "RegN64", GENERIC,
+                                      "generic", "resident"),
+          "generic_run_sim": Target(3, (38, 128, 4), RUN_SIM_PHASES, "RegN64", GENERIC, "generic",
+                                    "resident"),
+          # --generic-team24: the RegN64Tall line
+          "generic_team24": Target(768, (59, 143, 276), (550, 50, 150, 50), "RegN64Tall", GENERIC,
+                                   "generic", "streamed"),
+          # --generic-wide: the FromMemory line
+          "generic_team40": Target(768, (75, 159, 468), (550, 50, 150, 50), "FromMemory", GENERIC,
+                                   "generic", "streamed"),
+          "generic_team64": Target(768, (99, 183, 756), (550, 50, 150, 50), "FromMemory", GENERIC,
+                                   "generic", "streamed")}
+GENERIC_TARGETS = {"generic": ("generic_sweep_r10", "generic_run_sim"),
+                   "generic_team24": ("generic_team24",),
+                   "generic_wide": ("generic_team40", "generic_team64")}
 KW = dict(sigma=1e-6, alpha=1.6)
 
 
-def cuda_ms(fn, reps=3):
+def cuda_ms(fn, reps=3, spin=True):
+    """Mean device time of reps runs; the card spins first (torch.cuda._sleep) so
+    that the launches are queued before the window opens (spin=False: not)."""
     fn()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
+    if spin:
+        torch.cuda._sleep(2_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -95,7 +134,11 @@ def build(layouts: dict):
         for name, layout in layouts.items():
             alias = SHAPES[name].alias
             numbers = layout.count(",") + 1           # tiled: 3 (G,L,TPL) or 5 (RG,CG too); folded: 3
-            if name.endswith("_folded"):              # the whole line: another shape
+            if name.startswith("generic"):           # the whole line: another layout
+                fields = layout.split(",")
+                text, n = re.subn(rf"using {alias} = GenericShape<[^>]*>",
+                                  f"using {alias} = GenericShape<{', '.join(fields)}>", text)
+            elif name.endswith("_folded"):            # the whole line: another shape
                 shape = ", ".join(map(str, SHAPES[name].shape))
                 text, n = re.subn(rf"using {alias} = FoldedShape<[^>]*>",
                                   f"using {alias} = FoldedShape<{shape}, {layout}>", text)
@@ -115,8 +158,13 @@ def build(layouts: dict):
     report = {}                                       # using-name -> ptxas' registers and spills
     for name in layouts:
         n, m_s, m_d = SHAPES[name].shape
+        key = f"ShapeILi{n}ELi{m_s}ELi{m_d}E"
+        if name.startswith("generic"):                # GenericShape<TC, MAXW, REG, P>
+            tc, maxw, reg, *rest = (f.strip() for f in layouts[name].split(","))
+            p, minb = (rest + ["4", "1"][len(rest):])[:2]
+            key = f"GenericShapeILi{tc}ELi{maxw}ELb{int(reg == 'true')}ELi{p}ELi{minb}E"
         at = [i for i, ln in enumerate(lines) if "Compiling entry function" in ln
-              and f"ShapeILi{n}ELi{m_s}ELi{m_d}E" in ln and f"{SHAPES[name].variant}_kernel" in ln]
+              and key in ln and f"{SHAPES[name].variant}_kernel" in ln]
         report[name] = " | ".join(ln.strip() for i in at[:1] for ln in lines[i + 1:i + 4]
                                   if "registers" in ln or "spill" in ln)
     return fused_admm.bind(ctypes.CDLL(str(lib))), report
@@ -126,6 +174,26 @@ def step_ms(lib, variant, args, phases, reps=3):
     per = {it: cuda_ms(lambda: fused_admm.launch_variant(lib, variant, args, iters=it, **KW), reps)
            for it in sorted(set(phases))}
     return sum(per[it] for it in phases), per
+
+
+def timing_check(windows=10, reps=3):
+    """Windows of the package's generic kernel at the sweep's team of 10 (150
+    lanes), with and without the spin before each, interleaved."""
+    B, shape = SHAPES["generic_sweep_r10"].lanes, SHAPES["generic_sweep_r10"].shape
+    args = [torch.from_numpy(a).cuda()
+            for a in fused_admm.random_phase_inputs(np.random.default_rng(1), B, *shape)]
+    lib = fused_admm._lib()
+    for it in (50, 150):
+        got = {True: [], False: []}
+        for _ in range(windows):
+            for spin in (True, False):
+                got[spin].append(cuda_ms(
+                    lambda: fused_admm.launch_variant(lib, "generic", args, iters=it, **KW),
+                    reps, spin))
+        for spin, ms in got.items():
+            print(f"timing check, generic {shape} at B={B}, {it} iterations, "
+                  f"{'spun' if spin else 'not spun'}: " + ", ".join(f"{v:.4f}" for v in ms)
+                  + f" ms (min {min(ms):.4f}, max {max(ms):.4f})", flush=True)
 
 
 def main():
@@ -140,22 +208,51 @@ def main():
     ap.add_argument("--folded-at", nargs="+", metavar=("SHAPE", "LAYOUT"),
                     help="fov or lambda2, then T,RG,CG,KC layouts of the folded kernel at that "
                          "shape, e.g. fov 256,32,8,32")
+    ap.add_argument("--generic", nargs="*",
+                    help="TC,MAXW,REG[,P[,MINB]] layouts of the generic kernel, e.g. "
+                         "2,8,true,4,2 2,8,true,8,2 2,8,false,4,2 (timed at the sweep's team of "
+                         "10 and run_sim's team)")
+    ap.add_argument("--generic-team24", nargs="*",
+                    help="TC,MAXW,REG[,P[,MINB]] layouts of the generic kernel at the 24-agent "
+                         "fov team, e.g. 2,16,true")
+    ap.add_argument("--generic-wide", nargs="*",
+                    help="TC,MAXW,REG[,P[,MINB]] layouts of the generic kernel at the fov teams "
+                         "of 40 and 64 agents, e.g. 5,8,false 5,16,false")
+    ap.add_argument("--timing-check", action="store_true",
+                    help="time the package's generic kernel with and without the spin")
     opt = ap.parse_args()
     asked = {name: getattr(opt, name) for name in SHAPES
-             if not name.endswith("_folded") and getattr(opt, name)}
+             if not name.endswith("_folded") and not name.startswith("generic")
+             and getattr(opt, name)}
+    for option, targets in GENERIC_TARGETS.items():
+        held = []              # layouts every target of the option holds: they rewrite one line
+        for layout in getattr(opt, option) or ():
+            tc, maxw, reg = (f.strip() for f in layout.split(",")[:3])
+            short = [name for name in targets if 32 * int(tc) < SHAPES[name].shape[0] or (
+                reg == "true" and 32 * int(maxw) < sum(SHAPES[name].shape[1:]))]
+            if short:
+                print(f"generic layout {layout} does not hold {short}; another line of the "
+                      "source would run them, so it is not timed")
+            else:
+                held.append(layout)
+        asked.update({name: held for name in targets if held})
     if opt.folded_at:
         shape, *layouts = opt.folded_at
         if f"{shape}_folded" not in SHAPES or not layouts or opt.swarm_conn:
             sys.exit("admm_kernel_sweep: --folded-at takes fov or lambda2 and at least one "
                      "layout, and not beside --swarm-conn (both rewrite the SwarmConn line)")
         asked[f"{shape}_folded"] = layouts
-    if not asked:           # no option: the three shapes of the 8- and 4-robot steps
-        asked = {"fov": ["1,4,160", "1,4,128", "2,2,128"], "conn": ["2,4,64", "1,8,64", "2,4,96"],
-                 "lambda2": ["2,4,64,2,12", "2,4,64,2,9", "2,4,64,7,9"]}
     if not torch.cuda.is_available():
         sys.exit("admm_kernel_sweep: needs an NVIDIA GPU")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    if opt.timing_check:
+        timing_check()
+        if not asked:
+            return
+    if not asked:           # no option: the three shapes of the 8- and 4-robot steps
+        asked = {"fov": ["1,4,160", "1,4,128", "2,2,128"], "conn": ["2,4,64", "1,8,64", "2,4,96"],
+                 "lambda2": ["2,4,64,2,12", "2,4,64,2,9", "2,4,64,7,9"]}
     data, ref = {}, {}
     for name in asked:
         B, shape = SHAPES[name].lanes, SHAPES[name].shape

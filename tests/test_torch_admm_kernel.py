@@ -6,12 +6,16 @@ The twin is held against mpc_cbf_tpu.ops.qp.pallas_admm's kernel run in
 interpret mode (as tests/test_pallas_admm.py runs it on the CPU), at the
 fov flagship shapes (n = 43, m_s = 127, m_d = 84), the connectivity shapes
 (36, 126, 6), the 32-agent connectivity shapes (36, 126, 62) and the
-32-agent fov shapes (67, 151, 372) for 40 iterations, to rtol = atol = 2e-4:
-the bar of tests/test_pallas_admm.py:53-55 between two float32 loops that
-sum in another order. The folded form of the loop (the algebra of the
-``folded`` kernel) is held to the twin and to the Pallas kernel at the same
-bar. On the card every
-kernel variant (tiled, folded, resident, streamed) is held to it too.
+32-agent fov shapes (67, 151, 372), and the shapes without a compiled
+kernel (run_sim's 3-robot connectivity (38, 128, 4), the sweep's teams of 2
+and 10 (37, 127, 2), (45, 135, 18), a 24-agent fov team (59, 143, 276)) for
+40 iterations, to rtol = atol = 2e-4: the bar of
+tests/test_pallas_admm.py:53-55 between two float32 loops that sum in
+another order. The folded form of the loop (the algebra of the ``folded``
+kernel) and the generic kernel's three stages (``generic_loop``) are held to
+the twin and to the Pallas kernel at the same bar. On the card every kernel
+variant (tiled, folded, generic, and the first versions resident and
+streamed, launched by name) is held to it too.
 
 The cases marked ``cuda`` import no JAX, so that they also run where the
 GPU is and JAX is not (tests/conftest.py imports JAX, hence --noconftest):
@@ -35,8 +39,14 @@ import torch_parity_cases as cases
 
 FOV, CONN, SWARM_CONN, SWARM_FOV = (43, 127, 84), (36, 126, 6), (36, 126, 62), (67, 151, 372)
 CONN_LAMBDA2 = (36, 126, 14)         # 4-robot connectivity with the λ₂/CLF rows
-# shapes without a compiled kernel: run_sim's 3-robot connectivity, 24-agent fov
+# shapes without a compiled kernel (the generic kernel's): run_sim's 3-robot
+# connectivity, the sweep's connectivity teams of 2 and 10, a 24-agent fov team
 RUN_SIM_CONN, TEAM24_FOV = (38, 128, 4), (59, 143, 276)
+SWEEP_R2, SWEEP_R10 = (37, 127, 2), (45, 135, 18)
+# fov teams of 40 and 64 agents (35 + N, 119 + N, 12 (N - 1)) and a 40-robot
+# connectivity team (35 + R, 125 + R, 2 R - 2): the generic kernel reads their
+# rows from device memory
+TEAM40_FOV, TEAM64_FOV, TEAM40_CONN = (75, 159, 468), (99, 183, 756), (75, 165, 78)
 KW = dict(iters=40, sigma=1e-6, alpha=1.6)
 
 
@@ -45,7 +55,8 @@ def _inputs(B, seed, shape=FOV):
 
 
 @pytest.mark.parametrize("B,shape", [(5, FOV), (3, FOV), (4, CONN), (3, SWARM_CONN),
-                                     (6, CONN_LAMBDA2), (2, SWARM_FOV)])
+                                     (6, CONN_LAMBDA2), (2, SWARM_FOV), (3, RUN_SIM_CONN),
+                                     (4, SWEEP_R2), (3, SWEEP_R10), (2, TEAM24_FOV)])
 def test_twin_matches_pallas_kernel(B, shape):
     import jax.numpy as jnp
     from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
@@ -119,6 +130,96 @@ def test_folded_loop_matches_pallas_kernel(B, shape):
         np.testing.assert_allclose(f.numpy(), np.asarray(p), rtol=2e-4, atol=2e-4, err_msg=name)
 
 
+def generic_warps(n, m, rows_a_warp=32, threads_a_row=4):
+    """Warps of a block of the generic kernel (csrc/structured_admm_generic.cu,
+    ``generic_warps``): enough for the rows, 32 a warp, and for four threads
+    on each row of C, at most 8 at the RegN64 line (n <= 64, m <= 256) and
+    16 at RegN64Tall and FromMemory."""
+    max_warps = 8 if n <= 64 and m <= 256 else 16
+    return min(max_warps, max(-(-m // rows_a_warp), -(-threads_a_row * n // 32)))
+
+
+def generic_loop(Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, WK,
+                 x0, zs0, zd0, ys0, yd0, *, iters, sigma, alpha):
+    """The loop as the ``generic`` kernel computes it, in plain PyTorch: the
+    lane's float64 C = Ms_inv - WK (Ad Ms_inv) built once a phase, 32 rows of
+    Ad at a time as the kernel's prologue sums it, then the
+    kernel's stages an iteration. 1: the rows of [A_s; A_d] split into the
+    kernel's warps, each warp's column sums of r over its rows; 2: RHS =
+    sigma x - q + the warps' partial sums, in the warps' order; 3: xt = C RHS
+    in float64; 4: the rows of [A_s; A_d] xt and the row updates. It pins the
+    kernel's algebra and its order of summation across warps where there is
+    no card."""
+    dt, hi = qb.dtype, torch.float64
+    B, n = qb.shape
+    m_s = A_sb.shape[0]
+    Ms_inv_hi = Ms_inv.to(hi)
+    C = Ms_inv_hi.expand(B, -1, -1)                               # [B, n, n]
+    for k0 in range(0, Ad.shape[1], 32):
+        C = C - WK[:, :, k0:k0 + 32].to(hi) @ (Ad[:, k0:k0 + 32].to(hi) @ Ms_inv_hi)
+    A = torch.cat([A_sb.expand(B, -1, -1), Ad], 1)                # [B, m, n]
+    m = A.shape[1]
+    rw = -(-m // generic_warps(n, m))                             # rows a warp
+    lo = torch.cat([lbs, lbd], 1)
+    up = torch.cat([ubs, ubd], 1)
+    rho = torch.cat([rho_s.expand(B, -1), rho_d], 1)
+    x, z, y = x0, torch.cat([zs0, zd0], 1), torch.cat([ys0, yd0], 1)
+    for _ in range(iters):
+        r = rho * z - y
+        parts = [torch.einsum("bij,bi->bj", A[:, i:i + rw], r[:, i:i + rw])
+                 for i in range(0, m, rw)]
+        RHS = sigma * x - qb + torch.stack(parts).sum(0)
+        xt = torch.einsum("bij,bj->bi", C, RHS.to(hi)).to(dt)
+        zA = torch.einsum("bij,bj->bi", A, xt)
+        x = alpha * xt + (1 - alpha) * x
+        zr = alpha * zA + (1 - alpha) * z
+        zn = torch.clamp(zr + y / rho, lo, up)
+        y = y + rho * (zr - zn)
+        z = zn
+    return x, z[:, :m_s], z[:, m_s:], y[:, :m_s], y[:, m_s:]
+
+
+GENERIC_CASES = FOLDED_CASES + [(3, RUN_SIM_CONN), (4, SWEEP_R2), (3, SWEEP_R10),
+                                (2, TEAM24_FOV), (2, TEAM40_CONN)]
+
+
+@pytest.mark.parametrize("B,shape", GENERIC_CASES)
+def test_generic_loop_matches_twin(B, shape):
+    """The generic kernel's three stages against the twin, at the bar of two
+    float32 loops (they differ by the float32 rounding of S and Ad S that the
+    folded form skips, and by the order of the column sums)."""
+    arrays = [torch.from_numpy(a) for a in _inputs(B, seed=B, shape=shape)]
+    out_g = generic_loop(*arrays, **KW)
+    out_t = structured_admm_iterations_ref(*arrays, **KW)
+    for name, g, t in zip(("x", "zs", "zd", "ys", "yd"), out_g, out_t):
+        assert g.shape == t.shape and g.dtype == torch.float32
+        torch.testing.assert_close(g, t, rtol=2e-4, atol=2e-4, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("B,shape", GENERIC_CASES)
+def test_generic_loop_matches_pallas_kernel(B, shape):
+    """The generic kernel's algebra against the JAX package's kernel itself
+    (interpret mode) on the same inputs, at the bar the twin is held to."""
+    import jax.numpy as jnp
+    from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
+    arrays = _inputs(B, seed=B, shape=shape)
+    out_g = generic_loop(*[torch.from_numpy(a) for a in arrays], **KW)
+    out_p = pallas(*[jnp.asarray(a) for a in arrays], interpret=True, block=128, **KW)
+    for name, g, p in zip(("x", "zs", "zd", "ys", "yd"), out_g, out_p):
+        np.testing.assert_allclose(g.numpy(), np.asarray(p), rtol=2e-4, atol=2e-4, err_msg=name)
+
+
+def test_variants_follow_the_kernel_enum():
+    """VARIANTS is indexed by the code structured_admm_variant returns: the
+    AdmmVariant enum of csrc/structured_admm.cuh, read from the source."""
+    import re
+    header = (_build.SOURCES[0].parent / "structured_admm.cuh").read_text()
+    enum = re.search(r"enum AdmmVariant \{([^}]*)\}", header).group(1)
+    codes = {name: int(v) for name, v in re.findall(r"k(\w+) = (-?\d+)", enum)}
+    assert codes.pop("None") == -1
+    assert {name.lower(): v for name, v in codes.items()} == {v: i for i, v in enumerate(VARIANTS)}
+
+
 def test_wrapper_runs_twin_on_cpu_without_launching():
     arrays = [torch.from_numpy(a) for a in _inputs(4, seed=11)]
     before = structured_admm_iterations.launches
@@ -147,7 +248,8 @@ def test_build_flags():
     assert _build.BUILD_ROOT.parts[-2:] == ("build", "kernels")
     assert "-shared" not in _build.NVCC_FLAGS     # sources compile apart, one link at the end
     assert [p.name for p in _build.SOURCES] == [
-        "structured_admm.cu", "structured_admm_folded.cu", "structured_admm_tiled.cu"]
+        "structured_admm.cu", "structured_admm_folded.cu", "structured_admm_generic.cu",
+        "structured_admm_tiled.cu"]
     assert [p.name for p in _build.HEADERS] == ["structured_admm.cuh"]
 
 
@@ -168,8 +270,15 @@ def _need_gpu():
     (SWARM_CONN, 3, "folded"),
     (SWARM_FOV, 64, "folded"),
     (SWARM_FOV, 3, "folded"),
-    (RUN_SIM_CONN, 3, "resident"),   # no instantiation: operands in shared memory
-    (TEAM24_FOV, 16, "streamed"),    # beyond a block's shared memory: A_d, WK from device memory
+    (RUN_SIM_CONN, 3, "generic"),    # no instantiation: [A_s; A_d] in registers, C in shared
+    (SWEEP_R2, 30, "generic"),       # the sweep's teams of 2 and 10 at 15 R lanes
+    (SWEEP_R10, 150, "generic"),
+    (TEAM24_FOV, 16, "generic"),     # the 24-agent fov team: registers too, one block an SM
+    (TEAM40_FOV, 16, "generic"),     # rows from device memory (FromMemory)
+    (TEAM64_FOV, 8, "generic"),
+    (TEAM40_CONN, 16, "generic"),
+    ((162, 2, 2), 3, "resident"),    # n above every generic layout: the first versions
+    ((165, 4, 4), 3, "streamed"),
 ])
 def test_kernel_matches_twin_on_gpu(shape, B, took):
     """The kernel each shape takes against the twin on the card; same bar as
@@ -191,11 +300,17 @@ def test_kernel_matches_twin_on_gpu(shape, B, took):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant,shape,B", [("resident", FOV, 100), ("streamed", FOV, 100),
                                              ("resident", SWARM_CONN, 64),
-                                             ("streamed", SWARM_FOV, 16)])
+                                             ("streamed", SWARM_FOV, 16),
+                                             ("generic", FOV, 100), ("generic", SWARM_CONN, 64),
+                                             ("generic", SWARM_FOV, 16),   # A_d from memory
+                                             ("resident", RUN_SIM_CONN, 3),
+                                             ("streamed", TEAM24_FOV, 16)])
 def test_generic_kernels_take_the_fov_shapes_on_gpu(variant, shape, B):
-    """The two kernels that take any shape, launched by name at shapes the
-    wrapper gives to a compiled kernel (the fov shapes, and the 32-agent
-    shapes they ran before those got theirs), against the twin."""
+    """The kernels that take any shape, launched by name against the twin:
+    generic at shapes the wrapper gives to a compiled kernel (the fov shapes,
+    the 32-agent shapes; the 32-agent fov lane exceeds the registers and
+    reads A_d from device memory), and the first versions it replaced,
+    resident and streamed, which the wrapper no longer picks."""
     _need_gpu()
     arrays = [torch.from_numpy(a).cuda() for a in _inputs(B, seed=21, shape=shape)]
     before = structured_admm_iterations.launches
@@ -208,11 +323,11 @@ def test_generic_kernels_take_the_fov_shapes_on_gpu(variant, shape, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [FOV, CONN, CONN_LAMBDA2, SWARM_CONN])
+@pytest.mark.parametrize("shape", [FOV, CONN, CONN_LAMBDA2, SWARM_CONN, SWEEP_R10])
 def test_nan_lane_leaves_its_block_untouched_on_gpu(shape):
-    """The tiled kernel runs several lanes in one block, the folded kernel
-    several blocks on one SM; a lane that goes NaN changes no bit of any
-    other lane."""
+    """The tiled kernel runs several lanes in one block, the folded and
+    generic kernels several blocks on one SM; a lane that goes NaN changes no
+    bit of any other lane."""
     _need_gpu()
     arrays = [torch.from_numpy(a).cuda() for a in _inputs(13, seed=23, shape=shape)]
     clean = structured_admm_iterations(*arrays, **KW)
@@ -223,6 +338,32 @@ def test_nan_lane_leaves_its_block_untouched_on_gpu(shape):
     assert bool(torch.isnan(dirty[0][5]).all())
     for c, d in zip(clean, dirty):
         assert torch.equal(c[keep], d[keep])
+
+
+@pytest.mark.cuda
+def test_every_team_takes_a_redesigned_kernel_on_gpu():
+    """Every fov team of 2 to 84 agents and every connectivity team of 2 to
+    89 robots (the first versions held them to 76 and 84) takes tiled,
+    folded or generic, never a first version."""
+    _need_gpu()
+    lib = fused_admm._lib()
+    shapes = [(35 + N, 119 + N, 12 * (N - 1)) for N in range(2, 85)] + \
+             [(35 + R, 125 + R, 2 * R - 2) for R in range(2, 90)]
+    took = {s: VARIANTS[lib.structured_admm_variant(*s)] for s in shapes}
+    assert {s: v for s, v in took.items() if v not in ("tiled", "folded", "generic")} == {}
+
+
+@pytest.mark.cuda
+def test_shape_beyond_every_kernel_raises_on_gpu():
+    """A lane whose float64 matrix (n = 200: 320 KB) exceeds a block's shared
+    memory in every kernel has no kernel: the wrapper raises before
+    launching, and the twin does not stand in."""
+    _need_gpu()
+    arrays = [torch.from_numpy(a).cuda() for a in _inputs(1, seed=24, shape=(200, 10, 2))]
+    before = structured_admm_iterations.launches
+    with pytest.raises(ValueError, match="no kernel holds the shape"):
+        structured_admm_iterations(*arrays, **KW)
+    assert structured_admm_iterations.launches == before
 
 
 @pytest.mark.cuda
