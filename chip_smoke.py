@@ -66,7 +66,10 @@ sm_90a: an H100). It
    (its second argument): 32 rings of 24 agents, a shape without a compiled
    kernel, through the generic kernel (4 launches, asserted) and through the
    plain loop: usable rates within 0.01, success flags equal on 99 % of the
-   lanes;
+   lanes; then 19 rings of 40 agents (760 lanes) and 8 rings of 64 (512
+   lanes, one lane chunk) through the generic kernel's FromMemory layout (4
+   launches each, asserted; timed alone at those lanes: the generic_fov40
+   and generic_fov64 rows);
 8. holds the f64 IPM on the card against the same solve on the host CPU
    (512 fov lanes: converged flags, z to 1e-3);
 9. drives the f32 Mehrotra IPM (IPM_F32_ENTRY, bench.py's default solver)
@@ -136,7 +139,26 @@ sm_90a: an H100). It
     held against the twin and timed alone at 15 R lanes: the
     generic_sweep_r<R> rows), fov teams of 8 at 120, 240 and 360 degrees (the
     f32 IPM, no kernel): wall time, success and success_ref shares (every
-    connectivity cell must keep 1.0 for both), launches.
+    connectivity cell must keep 1.0 for both), launches;
+22. checkpoint/resume: utils/checkpoint.py::checkpointed_rollout on the
+    sweep's connectivity cell of 4 robots x 15 seeds (the generic kernel, 4
+    launches a step, asserted), 60 steps in segments of 20 into
+    build/smoke_ckpt/, then a crash at 40 and a fresh call that resumes to
+    60: the resumed steps within 1e-6 of the uninterrupted run;
+23. scenario sharding: parallel.sharded_rollout over make_mesh() (this
+    card) bitwise equal to sim.rollout on the same cell; init_distributed
+    in a world of one (NCCL, a localhost port): host_scenarios_to_global
+    returns the local batch unchanged;
+24. deploy: launch_formation with tests/test_deploy.py's two robots on the
+    card for 8 s of virtual time: both plants within 0.5 of their goals,
+    the pair more than 0.3 apart; median and p95 wall ms of a ControlNode
+    replan beside h = 100 ms, and the launches of one replan;
+25. the apps on the card's output: statistics.aggregate over the sweep
+    grid's rows (success rates equal to the rows' means), and a
+    generate_instances task flown by run_sim.main on the card;
+26. apps.audit_failed_lanes at 8192 lanes: the f32 IPM's usable rate, its
+    failed lanes and the oracle's status on each (reported beside the JAX
+    package's TPU record, not held to it).
 Any failure raises (exit code 1). The last three lines are the card's name
 and power limit again, a JSON record of the kernels and {"ok": true,
 "device": {...}}. Without a GPU, or without
@@ -195,10 +217,18 @@ MAGMA's LU row swaps the largest kernel; the polish on the card equal to the
 host's (flags on every lane, z within 3e-12); certified lanes within 1e-3 of
 the oracle but connectivity lane 120 (1.247e-3, the JAX package 1.249e-3);
 the sweep's connectivity cells 0.5-1.7 s for 60 steps (generic 0.55-0.70 ms
-a step's four launches at 15 R lanes), all seeds succeed, fov cells 13-31 s.
+a step's four launches at 15 R lanes), all seeds succeed, fov cells 13-31 s;
+generic 117.6 ms at the 40-agent fov step's 760 lanes (bound 1.71 ms, 1.45 %;
+streamed 380.5) and 180.5 ms at the 64-agent step's 512 (bound 2.27 ms, 1.26 %;
+streamed 960.0); a resumed checkpointed run equal to the uninterrupted one
+(max |Δ| 0), sharded_rollout on one card bitwise sim.rollout; the deploy graph's
+replans 273-304 ms median, 352-381 ms p95 (21 793 launches a replan: over 100 ms
+budget), both robots at their goals; the audit at 8192 lanes usable 0.9974, 21
+failed lanes, all max-iter at the oracle.
 5 to 10 minutes in all (353-432 s in the runs with the 32-agent and team
 phases above, 343-573 s with the slice-6 phases, 541 s with the generic
-kernel's rows); every phase logs its wall seconds.
+kernel's rows, 494-510 s with the last modules' phases); every phase logs its
+wall seconds.
 """
 
 from __future__ import annotations
@@ -207,6 +237,8 @@ import contextlib
 import dataclasses
 import io
 import json
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -226,12 +258,16 @@ from mpc_cbf_torch.ops.qp import structured as structured_mod
 from mpc_cbf_torch.ops.qp.oracle import solve_oracle_batch
 from mpc_cbf_torch.ops.qp.polish import make_guards, polish_structured
 from mpc_cbf_torch.ops.qp.structured import StructuredConfig
-from mpc_cbf_torch.apps import run_sim, sweep
+from mpc_cbf_torch.apps import audit_failed_lanes, generate_instances, run_sim, sweep
+from mpc_cbf_torch.apps import statistics as sweep_statistics
 from mpc_cbf_torch.controllers import (
     BezierParams, MPCParams, BezierMPCOperator, IMPCParams,
     ConnectivityIMPCCBF, FovIMPCCBF, StructuredIMPC)
-from mpc_cbf_torch.parallel import MultiAgentSim
+from mpc_cbf_torch.deploy import launch_formation
+from mpc_cbf_torch.parallel import MultiAgentSim, make_mesh, sharded_rollout
+from mpc_cbf_torch.parallel import distributed
 from mpc_cbf_torch.utils import config as cfgmod
+from mpc_cbf_torch.utils.checkpoint import Checkpointer, checkpointed_rollout
 from mpc_cbf_torch.utils.instances import circle_rotate_instance, random_instance
 from mpc_cbf_torch.utils.metrics import instance_success
 
@@ -245,9 +281,12 @@ SWARM_FOV_SHAPES = dict(n=67, m_s=151, m_d=372)   # 32-agent fov: 36 + 31 slack 
 RUN_SIM_CONN_SHAPES = dict(n=38, m_s=128, m_d=4)  # run_sim connectivity, 3 robots
 TEAM24_FOV_SHAPES = dict(n=59, m_s=143, m_d=276)  # 24-agent fov
 # fov teams of 40 and 64 agents and a 40-robot connectivity team: generic's
-# FromMemory layout (the streamed kernel held them before it)
+# FromMemory layout (the streamed kernel held them before it). The fov steps
+# run 19 rings of 40 (760 lanes, one lane chunk) and 8 rings of 64 (512
+# lanes: the auto lane_chunk of m_d = 756)
 TEAM40_FOV_SHAPES = dict(n=75, m_s=159, m_d=468)
 TEAM64_FOV_SHAPES = dict(n=99, m_s=183, m_d=756)
+TEAM_FOV_RINGS = {40: 19, 64: 8}
 TEAM40_CONN_SHAPES = dict(n=75, m_s=165, m_d=78)
 LAMBDA2_SHAPES = dict(n=36, m_s=126, m_d=14)      # 4-robot connectivity with the λ₂/CLF rows
 BASE_CONFIG = "configs/base_config.json"
@@ -406,8 +445,8 @@ def check_kernel(iters: int = 40) -> dict:
         ("generic_sweep_r10", "sweep connectivity team of 10, a cold phase",
          sweep_shapes(10), SWEEP_SEEDS * 10, None, max(RUN_SIM_PHASES)),
         ("generic_team24", "24-agent fov", TEAM24_FOV_SHAPES, 64, None),
-        ("generic_team24", "40-agent fov (rows from device memory)", TEAM40_FOV_SHAPES, 64, None),
-        ("generic_team24", "64-agent fov (rows from device memory)", TEAM64_FOV_SHAPES, 16, None),
+        ("generic_fov40", "40-agent fov (rows from device memory)", TEAM40_FOV_SHAPES, 64, None),
+        ("generic_fov64", "64-agent fov (rows from device memory)", TEAM64_FOV_SHAPES, 16, None),
         ("generic", "40-robot connectivity (rows from device memory)", TEAM40_CONN_SHAPES, 64,
          None),
         # n above every generic layout: the first versions still take such shapes
@@ -1167,8 +1206,9 @@ def sweep_grid(rows: dict) -> None:
     --controller fov --sizes 8 --fovs F --seeds 15 (the f32 IPM, no kernel)
     for F in 120, 240, 360. Prints each cell's wall time, success and
     success_ref shares and launches; fills the launches of the
-    generic_sweep_r<R> rows."""
+    generic_sweep_r<R> rows. Returns every cell's rows."""
     out = _build.BUILD_ROOT / "sweep.jsonl"
+    grid = []
     out.parent.mkdir(parents=True, exist_ok=True)
     cells = [("connectivity", R, None) for R in SWEEP_SIZES] + \
         [("fov", 8, fov) for fov in (120, 240, 360)]
@@ -1195,14 +1235,14 @@ def sweep_grid(rows: dict) -> None:
             f"{np.mean([r['solver_success_rate'] for r in recs]):.4f}, min separation "
             f"{min(r['min_separation'] for r in recs):.3f} m; structured-kernel launches {by}")
         if controller == "connectivity":
-            if by != {"generic": len(RUN_SIM_PHASES) * steps}:
-                raise AssertionError(f"sweep connectivity R={R} launched {by}, expected the generic "
-                                     f"kernel {len(RUN_SIM_PHASES)} times a step")
+            generic_launches(f"sweep connectivity R={R}", steps)
             if not all(r["success"] and r["success_ref"] for r in recs):
                 raise AssertionError(f"sweep connectivity R={R}: a seed failed")
             rows[f"generic_sweep_r{R}"]["launches"] = by["generic"]
         elif by:
             raise AssertionError(f"sweep fov launched the structured kernel: {by}")
+        grid.extend(recs)
+    return grid
 
 
 def stamp_steps(sim) -> list:
@@ -1555,6 +1595,224 @@ def command_line() -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the last modules: checkpoint/resume, scenario sharding, the deploy graph,
+# the apps on the card's output, the failed-lane audit
+# ---------------------------------------------------------------------------
+
+CKPT_TEAM = 4                # the sweep's connectivity cell of 4 robots x 15 seeds
+
+
+def sweep_cell_sim():
+    """apps/sweep.py's connectivity cell at R = CKPT_TEAM: the sim run_cell
+    builds (base_config.json, its state noise included) and its batch."""
+    sim, _ = run_sim.build_sim(cfgmod.load_config(BASE_CONFIG), "connectivity", CKPT_TEAM,
+                               RUN_SIM_ITERS, device=DEV)
+    init, goals, _ = sweep_instance(CKPT_TEAM, SWEEP_SEEDS)
+    return sim, init, goals
+
+
+def generic_launches(what: str, steps: int) -> None:
+    """The launches since reset_counts() must be the generic kernel's, one per
+    phase of RUN_SIM_PHASES and step."""
+    by = {k: v for k, v in KERNEL.launches_by_variant.items() if v}
+    if by != {"generic": len(RUN_SIM_PHASES) * steps}:
+        raise AssertionError(f"{what} launched {by} in {steps} steps, expected the generic "
+                             f"kernel {len(RUN_SIM_PHASES)} times a step")
+
+
+def checkpoint_phase(steps: int = 60, every: int = 20, crash_at: int = 40) -> None:
+    """utils/checkpoint.py::checkpointed_rollout on the sweep's R = 4 cell
+    (60 lanes, the generic kernel) into build/smoke_ckpt/: one run of
+    ``steps`` in segments of ``every``, then a crash (a fresh directory
+    stopped at ``crash_at``) and a fresh call that resumes to ``steps``.
+    The resumed steps must equal the uninterrupted run's within 1e-6 and
+    the success flags exactly; every call launches generic 4 times a step."""
+    sim, init, goals = sweep_cell_sim()
+    root = _build.BUILD_ROOT.parent / "smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(name: str, n: int):
+        reset_counts()
+        t0 = sync_clock()
+        (tp, tv, sc), final = checkpointed_rollout(
+            sim, init, goals, n, torch.Generator(device=DEV).manual_seed(0),
+            Checkpointer(str(root / name)), every=every)
+        wall = sync_clock() - t0
+        ran = tp.shape[1]                                   # [S, T, A, 3]
+        generic_launches(f"checkpointed_rollout {name} to {n}", ran)
+        return (tp, tv, sc), final, wall, ran
+
+    full, final, wall_full, _ = run("uninterrupted", steps)
+    first, _, wall_a, _ = run("crashed", crash_at)
+    rest, final_b, wall_b, ran = run("crashed", steps)
+    if ran != steps - crash_at:
+        raise AssertionError(f"the resumed call ran {ran} steps, expected {steps - crash_at}")
+    dev = max(float((torch.cat([a, b], dim=1) - f).abs().max())
+              for a, b, f in zip(first[:2], rest[:2], full[:2]))
+    dev = max(dev, float((final_b.pos - final.pos).abs().max()))
+    same_flags = torch.equal(torch.cat([first[2], rest[2]], dim=1), full[2])
+    log(f"checkpoint/resume, sweep connectivity cell R={CKPT_TEAM} x {SWEEP_SEEDS} seeds "
+        f"({CKPT_TEAM * SWEEP_SEEDS} lanes), {steps} steps in segments of {every}: "
+        f"uninterrupted {wall_full:.2f} s; crashed at {crash_at} ({wall_a:.2f} s) and resumed "
+        f"for {ran} steps ({wall_b:.2f} s); max |Δ| resumed against uninterrupted {dev:.3e} "
+        f"(bar 1e-6), success flags {'equal' if same_flags else 'DIFFER'}; generic "
+        f"{len(RUN_SIM_PHASES)} launches a step in each call")
+    if dev > 1e-6 or not same_flags:
+        raise AssertionError(f"the resumed run differs from the uninterrupted one: {dev:.3e}")
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharding_phase(steps: int = 20) -> None:
+    """parallel.sharded_rollout over make_mesh() (this card) against
+    sim.rollout on the same R = 4 sweep cell: bitwise equal. Then
+    init_distributed in a world of one (NCCL for CUDA tensors, a localhost
+    port): host_scenarios_to_global returns the local batch unchanged, and
+    sharded_rollout over global_mesh() is sim.rollout again."""
+    sim, init, goals = sweep_cell_sim()
+    mesh = make_mesh()
+    reset_counts()
+    t0 = sync_clock()
+    res = sharded_rollout(sim, mesh, init, goals, steps)
+    wall = sync_clock() - t0
+    generic_launches("sharded_rollout", steps)
+    ref = sim.rollout(init, goals, steps)
+    fields = ("traj_pos", "traj_vel", "success", "coeffs", "certified")
+    same = all(torch.equal(getattr(res, f), getattr(ref, f)) for f in fields) \
+        and torch.equal(res.states.pos, ref.states.pos)
+    log(f"sharded_rollout over make_mesh() {mesh.shape} on {list(mesh.devices.ravel())}, "
+        f"{SWEEP_SEEDS} scenarios x {CKPT_TEAM} robots, {steps} steps: {wall:.2f} s, "
+        f"{'bitwise equal to' if same else 'DIFFERS from'} sim.rollout")
+    if not same:
+        raise AssertionError("sharded_rollout on one card is not sim.rollout")
+
+    distributed.init_distributed(f"tcp://localhost:{free_port()}", 1, 0)
+    try:
+        backend = torch.distributed.get_backend()
+        gmesh = distributed.global_mesh()
+        g_init, g_goals = distributed.host_scenarios_to_global(gmesh, (init, goals))
+        unchanged = torch.equal(g_init.pos, init.pos) and torch.equal(g_init.vel, init.vel) \
+            and torch.equal(g_goals, goals) and g_goals.device == goals.device
+        g_res = sharded_rollout(sim, gmesh, g_init, g_goals, 2)
+        again = torch.equal(g_res.traj_pos, sim.rollout(init, goals, 2).traj_pos)
+        log(f"init_distributed, a world of one (backend {backend}): global_mesh {gmesh.shape} on "
+            f"{gmesh.devices[0, 0]}; host_scenarios_to_global returns the local batch "
+            f"{'unchanged' if unchanged else 'CHANGED'}; sharded_rollout over it "
+            f"{'equals' if again else 'DIFFERS from'} sim.rollout")
+        if not (unchanged and again):
+            raise AssertionError("host_scenarios_to_global or sharded_rollout changed a world "
+                                 "of one")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def deploy_phase(run_until: float = 8.0) -> None:
+    """deploy.launch_formation on the card: tests/test_deploy.py's two robots
+    (FovCBF(2π, 0.3, 20.0), ADMMConfig(iters=200), takeoff 0.5 s, filters at
+    10 Hz) for ``run_until`` s of virtual time. Both plants must end within
+    0.5 of their goals and the pair stay more than 0.3 apart. Prints the
+    median and p95 wall ms of a ControlNode replan (the dense ADMM, no K3
+    launch) beside h, and the kernel launches of one replan."""
+    mpc = MPCParams()
+    op = BezierMPCOperator(BezierParams(), mpc, dim=3, device=DEV, dtype=F32)
+    cbf = FovCBF(2 * np.pi, 0.3, 20.0, mpc.v_min, mpc.v_max)
+    starts = np.array([[0.0, 0.7, 0.0], [4.0, -0.7, 0.0]])
+    goals = np.array([[4.0, 0.7, 0.0], [0.0, -0.7, 0.0]])
+    reset_counts()
+    t0 = sync_clock()
+    _, sched, nodes = launch_formation(
+        2, starts, goals, lambda i: FovIMPCCBF(op, cbf, IMPCParams(), max_neighbors=1,
+                                               solver=ADMMConfig(iters=200)),
+        takeoff_time=0.5, filter_rate=10.0, device=DEV)
+    sched.run_until(run_until)
+    wall = sync_clock() - t0
+    err = [float(np.linalg.norm(p._pos[:2] - goals[i][:2])) for i, p in enumerate(nodes["plants"])]
+    p0, p1 = (np.asarray(c.path_log) for c in nodes["controllers"])
+    n = min(len(p0), len(p1))
+    d_min = float(np.linalg.norm(p0[:n, :2] - p1[:n, :2], axis=-1).min())
+    replan = np.concatenate([c.replan_s for c in nodes["controllers"]]) * 1e3
+    h_ms = mpc.h * 1e3
+    launches, busy, one_ms = profile_counts(nodes["controllers"][0]._optimization_callback)
+    log(f"deploy, two robots on {DEV}, {run_until} s of virtual time in {wall:.2f} s of wall: "
+        f"goal errors {err[0]:.3f} / {err[1]:.3f} m (bar 0.5), min distance {d_min:.3f} m "
+        f"(bar 0.3); {len(replan)} ControlNode replans, median {np.median(replan):.2f} ms, p95 "
+        f"{np.percentile(replan, 95):.2f} ms, max {replan.max():.2f} ms against h = {h_ms:.0f} ms "
+        f"({'within' if np.percentile(replan, 95) <= h_ms else 'OVER'} the budget); one replan "
+        f"under torch.profiler: {launches} kernel launches, device busy {busy:.2f} ms of "
+        f"{one_ms:.2f} ms; structured-kernel launches {KERNEL.launches}")
+    if max(err) >= 0.5 or d_min <= 0.3:
+        raise AssertionError(f"deploy: goal errors {err}, min distance {d_min:.3f}")
+    if KERNEL.launches:
+        raise AssertionError("deploy: the dense controller launched the structured kernel")
+
+
+def apps_phase(grid: list) -> None:
+    """The experiment apps on the card's output: statistics.aggregate over
+    the sweep grid's rows (its success rates must be the rows' means), then
+    generate_instances writes a 3-robot rotate task into build/, and
+    run_sim.main --device cuda flies it (connectivity: success, the generic
+    kernel 4 times a step)."""
+    summary = sweep_statistics.aggregate(grid)
+    for cell in summary:
+        rows = [r for r in grid if (r["controller"], r["fov"], r["num_robots"])
+                == (cell["controller"], cell["fov"], cell["num_robots"])]
+        if cell["n"] != len(rows) or cell["success_rate"] != np.mean([r["success"] for r in rows]) \
+                or cell["success_ref_rate"] != np.mean([r["success_ref"] for r in rows]):
+            raise AssertionError(f"statistics.aggregate: {cell} against {len(rows)} rows")
+        log(f"statistics: {cell['controller']} fov={cell['fov']} R={cell['num_robots']} "
+            f"n={cell['n']}: success {cell['success_rate']:.4f}, success_ref "
+            f"{cell['success_ref_rate']:.4f}, makespan {cell['makespan_mean']:.2f} ± "
+            f"{cell['makespan_ci95']:.2f} steps")
+    task = _build.BUILD_ROOT.parent / "smoke_task_3r_rotate.json"
+    out = _build.BUILD_ROOT.parent / "smoke_task_states.json"
+    with contextlib.redirect_stdout(io.StringIO()):
+        generate_instances.main(["--kind", "rotate", "-n", "3", "-r", "2.0", "--out", str(task)])
+    reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_sim.main(["--base", BASE_CONFIG, "--task", str(task), "--controller",
+                           "connectivity", "--sim-runtime", "8.0", "--out", str(out),
+                           "--device", str(DEV)])
+    summ = json.loads(buf.getvalue().strip().splitlines()[-1])
+    generic_launches("run_sim on the generated task", summ["steps"])
+    log(f"generate_instances --kind rotate -n 3 -> {task.name}; run_sim --controller connectivity "
+        f"on it ({DEV}): rc {rc}, success {summ['success']}, makespan {summ['makespan']}, solver "
+        f"success {summ['solver_success_rate']:.4f}, {summ['wall_s'] * 1e3 / summ['steps']:.2f} ms "
+        f"a replan step")
+    if rc != 0 or not summ["success"]:
+        raise AssertionError(f"run_sim on the generated task: {summ}")
+
+
+def audit_phase(batch: int = 8192) -> None:
+    """apps.audit_failed_lanes at ``batch`` lanes on the card: the f32 IPM's
+    usable rate, its failed lanes and the oracle's status on each (host).
+    Passes when the audit runs to its end; the classification is reported
+    beside the JAX package's TPU record, not held to it."""
+    reset_counts()
+    t0 = sync_clock()
+    out = audit_failed_lanes.run(batch, DEV)
+    wall = sync_clock() - t0
+    more = " ..." if out["failed"] > 24 else ""
+    log(f"audit_failed_lanes, {batch} lanes on {DEV}: f32 IPM usable {out['usable']:.4f} (the "
+        f"fov f32 IPM phase above: 0.9974 in earlier runs), failed "
+        f"{out['failed']} (lanes {out['failed_lanes'][:24]}{more}); "
+        f"oracle statuses on them {out.get('status_counts', {})} (0 optimal, 1 max-iter, 2 "
+        f"numerical failure)" + (f", oracle's own violation on the solvable ones "
+                                 f"{out['oracle_viol_max']:.2e}, the IPM's pri_res there "
+                                 f"{out['pri_res_of_solvable']}" if "oracle_viol_max" in out
+                                 else "") + f"; {wall:.2f} s. The JAX package on a TPU v5e "
+        "(BENCH.md:192-194, 2048 lanes): 14 failed, all 14 max-iter at the oracle")
+    if out["failed"] and sum(out["status_counts"].values()) != out["failed"]:
+        raise AssertionError(f"audit: {out['status_counts']} for {out['failed']} failed lanes")
+    if KERNEL.launches:
+        raise AssertionError("audit: the f32 IPM launched the structured kernel")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; it needs an NVIDIA GPU",
@@ -1598,6 +1856,11 @@ def main() -> int:
             "generic_team24": time_phases("24-agent fov", TEAM24_FOV_SHAPES, 768,
                                           phases=SWARM_PHASES["fov"], replaced="streamed",
                                           reps=1),
+            # the 40- and 64-agent fov steps below (FromMemory): the lanes of a launch
+            **{f"generic_fov{A}": time_phases(
+                f"{A}-agent fov", shapes, TEAM_FOV_RINGS[A] * A, phases=SWARM_PHASES["fov"],
+                replaced="streamed", reps=1)
+               for A, shapes in ((40, TEAM40_FOV_SHAPES), (64, TEAM64_FOV_SHAPES))},
             # the sweep's connectivity teams: 15 seeds x R robots a launch
             **{f"generic_sweep_r{R}": time_phases(
                 f"sweep connectivity team of {R}", sweep_shapes(R), SWEEP_SEEDS * R,
@@ -1620,6 +1883,14 @@ def main() -> int:
         plain=True)
     del swarm, team24
     torch.cuda.empty_cache()
+    for A, shapes in ((40, TEAM40_FOV_SHAPES), (64, TEAM64_FOV_SHAPES)):
+        team = swarm_problem("fov", scenarios=TEAM_FOV_RINGS[A], A=A)
+        if controller_shapes(team[0]) != shapes:
+            raise AssertionError(f"{A}-agent fov shapes {controller_shapes(team[0])}")
+        rows[f"generic_fov{A}"]["launches"] = phase(
+            f"{A}-agent fov step", swarm_path, "fov", *team, "generic", rows[f"generic_fov{A}"])
+        del team
+        torch.cuda.empty_cache()
     rows["tiled_lambda2"]["launches"] = phase("λ₂ connectivity step", lambda2_path,
                                               rows["tiled_lambda2"])
     phase("f64 IPM, card against host", ipm_device_parity)
@@ -1636,7 +1907,12 @@ def main() -> int:
                 for mode in ("fov", "connectivity")}
     phase("polish, card against host", polish_card_vs_host)
     phase("polish against the oracle", polish_vs_oracle)
-    phase("sweep grid", sweep_grid, rows)
+    grid = phase("sweep grid", sweep_grid, rows)
+    phase("checkpoint/resume", checkpoint_phase)
+    phase("scenario sharding", sharding_phase)
+    phase("deploy", deploy_phase)
+    phase("apps on the card's output", apps_phase, grid)
+    phase("audit", audit_phase)
     log("polish summary: " + json.dumps({m: {k: round(v, 4) for k, v in r.items()}
                                          for m, r in polished.items()}))
     log(f"  [all phases: {time.perf_counter() - t_start:.1f} s]")

@@ -6,12 +6,16 @@ PyTorch, and the one Pallas kernel of the JAX package (the fused
 structured-ADMM loop, ``mpc_cbf_tpu/ops/qp/pallas_admm.py``) is a CUDA C++
 kernel for Hopper (``csrc/structured_admm.cu``, built by ``_build.py``).
 
-Ported so far: the fov/connectivity MPC-CBF control step through
-``controllers.mpc_cbf.StructuredIMPC`` with the structured ADMM
-(``ops.qp.structured``, optionally with the f64 active-set polish of
-``ops.qp.polish``) or the Mehrotra IPM family (``ops.qp.ipm``), the dense
-ADMM and every controller on it, the closed loops of ``parallel``, the
-exact oracle (``ops.qp.oracle``) and the apps ``run_sim`` and ``sweep``.
+It covers every module of the JAX package: the fov/connectivity MPC-CBF
+control step through ``controllers.mpc_cbf.StructuredIMPC`` with the
+structured ADMM (``ops.qp.structured``, optionally with the f64 active-set
+polish of ``ops.qp.polish``) or the Mehrotra IPM family (``ops.qp.ipm``),
+the dense ADMM and every controller on it, the closed loops, the mesh,
+scenario sharding and the multi-process helpers of ``parallel``, the exact
+oracle (``ops.qp.oracle``), checkpoint/resume (``utils.checkpoint``), the
+deployment node graph (``deploy``) and the apps (``run_sim``, ``sweep``,
+``generate_instances``, ``statistics``, ``plot_results``,
+``audit_failed_lanes``).
 """
 
 __version__ = "0.1.0"

@@ -15,8 +15,9 @@ Semantics (as the JAX package): all agents replan from the same snapshot;
 an agent whose solve yields no flyable curve keeps flying its last one
 (reference ``MPCCBFFormationControl_example.cpp:150-221``).
 
-Not ported yet: the mesh and ``sharded_rollout`` (on one device it is
-``rollout`` over the scenario axis, which ``apps/sweep.py`` calls).
+``sharded_rollout`` splits the scenario axis over the rows of a device
+mesh (``parallel/mesh.py``); on one device it is ``rollout`` itself, which
+``apps/sweep.py`` calls.
 """
 
 from __future__ import annotations
@@ -38,6 +39,9 @@ from mpc_cbf_torch.models.double_integrator import DoubleIntegrator
 from mpc_cbf_torch.ops.controls import add_random_noise, critically_damped_spring_control
 from mpc_cbf_torch.ops.geometry import convert_to_closest_yaw
 from mpc_cbf_torch.ops.qp.structured import StructuredConfig, StructuredQPOperator
+from mpc_cbf_torch.parallel.distributed import _world, all_gather_cat
+from mpc_cbf_torch.parallel.mesh import Mesh, scenario_sharding
+from mpc_cbf_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
 
@@ -321,6 +325,50 @@ class MultiAgentSim:
                          traj_vel=torch.stack(tv, dim=t_axis),
                          success=torch.stack(succ, dim=t_axis), coeffs=cur_coeffs,
                          certified=torch.stack(cert, dim=t_axis))
+
+
+def sharded_rollout(sim: MultiAgentSim, mesh: Mesh, init: State, goals: Tensor,
+                    num_steps: int, generator: Optional[torch.Generator] = None) -> SimResult:
+    """Scenario-sharded rollout: the leading axis S of init/goals is split
+    into equal contiguous slices over the mesh's scenario rows; each slice
+    runs ``sim.rollout`` on its row's device, and the results come back
+    concatenated in scenario order on the first device of this process (the
+    replacement for ScaleScript.sh's process loop).
+
+    init: State with [S, A, dim] leaves; goals [S, A, dim]. With one row in
+    one process it is exactly ``sim.rollout(init, goals, num_steps,
+    generator)`` on that device. Otherwise row k draws its noise from a
+    generator seeded with generator.initial_seed() + k (0 + k for None), so
+    noisy results depend on the row count; the default, noise-free sims do
+    not. Across processes (``parallel/distributed.py``) every process runs
+    the rows it owns, one contiguous block each in rank order as
+    ``global_mesh`` lays them, and the results are all-gathered so every
+    process returns the whole batch.
+    """
+    # one (device, process, (slice,)) a row: the agent axis replicates
+    rows = scenario_sharding(mesh).shards(goals.shape)[::mesh.shape["agent"]]
+    world, rank = _world()
+    if len(rows) == 1 and world == 1:
+        dev = rows[0][0]
+        return sim.rollout(State(init.pos.to(dev), init.vel.to(dev)), goals.to(dev), num_steps,
+                           generator)
+    procs = [proc for _, proc, _ in rows]
+    if world > 1 and (procs != sorted(procs) or set(procs) != set(range(world))
+                      or len({procs.count(r) for r in range(world)}) != 1):
+        raise ValueError(f"mesh rows owned by processes {procs}: across {world} processes "
+                         "each needs an equal block of rows in rank order (global_mesh)")
+    seed0 = 0 if generator is None else generator.initial_seed()
+    parts = []
+    for k, (dev, proc, (sl,)) in enumerate(rows):
+        if proc == rank:
+            parts.append(sim.rollout(State(init.pos[sl].to(dev), init.vel[sl].to(dev)),
+                                     goals[sl].to(dev), num_steps,
+                                     torch.Generator(device=dev).manual_seed(seed0 + k)))
+    out = parts[0].traj_pos.device
+    leaves = [tree_flatten(p)[0] for p in parts]
+    merged = tree_unflatten(parts[0], [torch.cat([x.to(out) for x in xs])
+                                       for xs in zip(*leaves)])
+    return tree_map(all_gather_cat, merged) if world > 1 else merged
 
 
 # ---------------------------------------------------------------------------

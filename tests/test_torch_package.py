@@ -30,10 +30,15 @@ def _imported_modules(path):
 
 def test_package_imports_no_jax():
     files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 35
+    assert len(files) >= 47
     assert {"admm.py", "cbf_qp.py", "particle_filter.py", "run_sim.py", "config.py",
             "polish.py", "linsolve.py", "oracle.py", "sweep.py", "collision_shapes.py",
-            "svm.py", "profiling.py", "logging.py"} <= {f.name for f in files}
+            "svm.py", "profiling.py", "logging.py", "checkpoint.py", "tree.py",
+            "generate_instances.py", "statistics.py", "plot_results.py",
+            "audit_failed_lanes.py", "runtime.py", "nodes.py", "mesh.py",
+            "distributed.py"} <= {f.name for f in files}
+    assert {"deploy/__init__.py", "deploy/nodes.py", "parallel/mesh.py",
+            "utils/checkpoint.py"} <= {str(f.relative_to(PKG)) for f in files}
     bad = [(f.relative_to(PKG), mod) for f in files for mod in _imported_modules(f)
            if mod.split(".")[0] in FORBIDDEN]
     assert not bad, f"mpc_cbf_torch imports the JAX side: {bad}"
@@ -43,6 +48,13 @@ def test_chip_smoke_imports_no_jax():
     script = PKG.parent / "chip_smoke.py"
     mods = list(_imported_modules(script))
     assert "mpc_cbf_torch" in {m.split(".")[0] for m in mods}
+    assert not [m for m in mods if m.split(".")[0] in FORBIDDEN]
+
+
+def test_torch_distributed_worker_imports_no_jax():
+    """The two-process test's worker runs in processes of torch alone."""
+    mods = list(_imported_modules(PKG.parent / "tests" / "torch_distributed_worker.py"))
+    assert "mpc_cbf_torch.parallel.distributed" in mods
     assert not [m for m in mods if m.split(".")[0] in FORBIDDEN]
 
 

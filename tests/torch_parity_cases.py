@@ -5,6 +5,8 @@ numpy generator so both packages see the same numbers.
 """
 
 import numpy as np
+import pytest
+import torch
 
 MPC_K_HOR = 16
 FOV_BETA = 120.0 * np.pi / 180.0
@@ -74,3 +76,15 @@ def torch_controller(mode, device, dtype):
     cbf = ConnectivityCBF(1.0, 4.0, mpc.v_min, mpc.v_max)
     return ConnectivityIMPCCBF(op, cbf, IMPCParams(), 3,
                                enable_connectivity=mode == "connectivity_lambda2")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while a module's tests run, then the count it
+    found. The suite runs several workers a host, and the parity tests' small
+    tensors gain nothing from more threads: spinning threads of several
+    workers slow each other down many times over. Autouse where imported."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
