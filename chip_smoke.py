@@ -20,23 +20,27 @@ sm_90a: an H100). It
    (step 21; R = 10 also for a 150-iteration phase) and at the 24-agent fov
    shapes (59, 143, 276) on 64 lanes, the 40- and 64-agent fov teams and a
    40-robot connectivity team (rows read from device memory); generic also
-   launched by name at the fov flagship and the 32-agent shapes; resident
-   and streamed (the first versions, which generic replaced) launched by
-   name at the fov shapes, the 32-agent shapes and the shapes they ran
-   before generic, and through the wrapper at the two shapes past every
-   generic layout (n = 162 and 165) that they still take; and a NaN lane that must leave every other lane
-   bitwise untouched at each shape whose kernel shares a block or an SM
-   between lanes (the inputs carry inactive rows with rho = 1e-12 and
-   bounds of +-1e20);
+   launched by name at the fov flagship and the 32-agent shapes; cluster
+   (one lane a thread-block cluster) at the fov teams of 96, 128 (also for
+   the step's 550-iteration phase) and 256 agents, the connectivity teams
+   of 128 and 256 robots and two synthetic shapes past every one-block
+   layout (n = 162 and 165), and by name at the 64-agent fov team; a NaN
+   lane that must leave every other lane bitwise untouched at each shape
+   whose kernel shares a block or an SM between lanes (the inputs carry
+   inactive rows with rho = 1e-12 and bounds of +-1e20); then checks that
+   every fov team of 2 to 256 agents and every connectivity team of 2 to 256
+   robots takes one of the four kernels (none raises);
 4. times kernel and twin for each rho phase length of a control step (150 +
    50 cold, 32 + 32 warm) at 8192 fov and 32768 connectivity lanes, and at
    the lanes and phase lengths a launch of steps 7 and 7b gets: the folded
    kernel at 4096 lanes (4 x 50 iterations) and at one lane chunk of 2048
    (550 + 50 + 150 + 50), generic at the 3 lanes of one run_sim team (150
    + 50 + 150 + 50), at each sweep team's 15 R lanes (the same phases) and
-   at the 24-agent step's 768 lanes; beside each kernel the kernel its shape
-   ran before (resident; streamed for the 32-agent and 24-agent fov
-   shapes), which must be the slower one; prints each time beside its bound
+   at the 24-agent step's 768 lanes, generic at the 40- and 64-agent steps'
+   launches and cluster at the 96- and 128-agent steps' (96 lanes; a lane
+   chunk of 256), at a lane chunk of a 256-agent step, at one run_sim team
+   of 128 and of 256 connectivity robots, and by name at the 64-agent step's
+   launch beside generic; prints each time beside its bound
    (the slowest of the float32 operations, the float64 operations and the
    bytes, from the shapes and the card's peaks; the operations are the
    fewest a known form of the loop needs, see bound()), and the
@@ -69,7 +73,12 @@ sm_90a: an H100). It
    lanes; then 19 rings of 40 agents (760 lanes) and 8 rings of 64 (512
    lanes, one lane chunk) through the generic kernel's FromMemory layout (4
    launches each, asserted; timed alone at those lanes: the generic_fov40
-   and generic_fov64 rows);
+   and generic_fov64 rows), one ring of 96 agents (96 lanes) and 4 rings
+   of 128 (512 lanes, two lane chunks of 256) through the cluster kernel
+   (4 and 8 launches, asserted), each also through the plain loop (usable
+   rates within 0.01, flags equal on 99 % of the lanes), the wall time the
+   median of 3 calls, with the kernel's share, bound and twin beside it
+   (the 128-agent step also with a sync around each stage);
 8. holds the f64 IPM on the card against the same solve on the host CPU
    (512 fov lanes: converged flags, z to 1e-3);
 9. drives the f32 Mehrotra IPM (IPM_F32_ENTRY, bench.py's default solver)
@@ -90,8 +99,7 @@ sm_90a: an H100). It
     (ConnectivityIMPCCBF(enable_connectivity=True), shapes (36, 126, 14))
     through StructuredIMPC at 32768 lanes: it must launch the tiled kernel
     4 times a call (the shape has an instantiation of its own); the kernel
-    is held against the twin at that shape and timed alone at those lanes,
-    beside the resident kernel;
+    is held against the twin at that shape and timed alone at those lanes;
 14. the dense ADMM (ops/qp/admm.py, ADMMConfig(iters=200) as run_sim builds
     it) against the same solver in float64 on the card: the fov flagship's
     QPs (n = 43, m = 211) at 8192 lanes and the cbf-fov QPs (n = 10, m = 44)
@@ -102,9 +110,9 @@ sm_90a: an H100). It
 16. closed loops at the width of a sweep (circle_rotate_instance(8, 4.0)
     with 0.05 m start noise, apps/sweep.py:60-70), built by run_sim.build_sim
     from configs/base_config.json: CBFOnlySim cbf-fov (slack on) 8 x 4096
-    for 60 steps, with one step under torch.profiler, the same with the
+    for 30 steps, with one step under torch.profiler, the same with the
     particle filter (229376 filters of 256 particles), CBFOnlySim
-    cbf-connectivity 8 x 4096 for 60 steps, BezierMPCSim 8 x 1024 for 20
+    cbf-connectivity 8 x 4096 for 30 steps, BezierMPCSim 8 x 1024 for 20
     steps, MultiAgentSim(structured=False) 8 x 256 for 5 steps: finite
     trajectories, ms per step, solver success, instance_success share,
     minimum pairwise distance, peak device memory;
@@ -139,7 +147,9 @@ sm_90a: an H100). It
     held against the twin and timed alone at 15 R lanes: the
     generic_sweep_r<R> rows), fov teams of 8 at 120, 240 and 360 degrees (the
     f32 IPM, no kernel): wall time, success and success_ref shares (every
-    connectivity cell must keep 1.0 for both), launches;
+    connectivity cell must keep 1.0 for both), launches; then connectivity
+    cells of 128 and 256 robots (one seed, 1 s) through the cluster kernel (4
+    launches a step, asserted; the cluster_conn<R> rows);
 22. checkpoint/resume: utils/checkpoint.py::checkpointed_rollout on the
     sweep's connectivity cell of 4 robots x 15 seeds (the generic kernel, 4
     launches a step, asserted), 60 steps in segments of 20 into
@@ -166,30 +176,26 @@ the repository beside it, it exits non-zero and prints no result.
 Cut against earlier versions to stay within the time: the f32-IPM closed
 loop flies 10 steps (60 at first, then 20), the fov IPM times 3 calls, not
 5, and its chunk = 0 run, the connectivity IPM and HYBRID_PROD time one
-call each, not three.
+call each, not three; the CBF-only loops fly 30 steps, not 60.
 
 Expected on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md; the wall times
 follow the host): every kernel variant within 3.4e-5 of its twin at 40
 iterations, the folded kernel within 6.2e-5 after 550; one fov control
 step's four phases at 8192 lanes 16.0-16.2 ms in the tiled kernel (bound
-1.17 ms, 7.3 % of it reached; resident 39.2-39.7 ms, twin 144-272 ms);
-connectivity at 32768 lanes 19.5-19.7 ms (bound 2.45 ms, 12.6 %; resident
-84.6-85.3 ms); the 4-robot step with the λ₂/CLF rows at 32768 lanes 20.7 ms
-(bound 2.60 ms, 12.6 %; resident 88.7 ms); the folded kernel 3.33-3.45 ms for
+1.17 ms, 7.3 % of it reached; twin 144-272 ms); connectivity at 32768 lanes
+19.5-19.7 ms (bound 2.45 ms, 12.6 %); the 4-robot step with the λ₂/CLF rows at
+32768 lanes 20.7 ms (bound 2.60 ms, 12.6 %); the folded kernel 3.33-3.45 ms for
 the 32-agent connectivity step's four launches at 4096 lanes (bound 0.33 ms,
-9.6-9.9 %; resident 10.3 ms) and 29.5-30.7 ms for one 2048-lane chunk of the
-32-agent fov step (bound 3.43 ms, 11.2-11.6 %; streamed 586.5-591.4 ms, its
-twin 627-787 ms); generic 0.55 ms for the four launches of one run_sim
-connectivity step on 3 lanes (1.38 µs, ~2740 clocks and 3 barriers an
-iteration; bound 3.6e-4 ms: three blocks on a 132-SM card; resident 1.30 ms,
-3.25 µs and 8 barriers), 0.55-0.70 ms at the sweep's teams on 15 R lanes
-(resident 1.25-1.63 ms), 11.4-12.0 ms at the 24-agent fov shapes on 768
-lanes (bound 0.91 ms, 8 %; streamed 118.4-121.5 ms); fov ADMM usable 0.7097 (plain
+9.6-9.9 %) and 29.5-30.7 ms for one 2048-lane chunk of the 32-agent fov step
+(bound 3.43 ms, 11.2-11.6 %; its twin 627-787 ms); generic 0.55 ms for the four
+launches of one run_sim connectivity step on 3 lanes (1.38 µs, ~2740 clocks and
+3 barriers an iteration; bound 3.6e-4 ms: three blocks on a 132-SM card),
+0.55-0.70 ms at the sweep's teams on 15 R lanes, 11.4-12.0 ms at the 24-agent
+fov shapes on 768 lanes (bound 0.91 ms, 8 %); fov ADMM usable 0.7097 (plain
 route 0.7095), 150-415 ms
 per call; connectivity ADMM usable 0.9933, 26-31 ms; 32-agent connectivity
 usable 1.0000, 36-60 ms (f32 IPM: 1.0000, 423-625 ms); 32-agent fov usable
-0.9900 with the kernel and with the plain loop, 0.82-1.24 s (1.8-2.4 s with
-the streamed kernel), peak 6.35 GiB (f32 IPM: usable 1.0000, 494-903 ms,
+0.9900 with the kernel and with the plain loop, 0.82-1.24 s, peak 6.35 GiB (f32 IPM: usable 1.0000, 494-903 ms,
 peak 1.39 GiB); 24-agent fov usable 0.9935 through the generic kernel and
 the plain loop, flags equal on every lane; λ₂ connectivity
 usable 0.5292 on bench.py's random teams
@@ -218,23 +224,30 @@ host's (flags on every lane, z within 3e-12); certified lanes within 1e-3 of
 the oracle but connectivity lane 120 (1.247e-3, the JAX package 1.249e-3);
 the sweep's connectivity cells 0.5-1.7 s for 60 steps (generic 0.55-0.70 ms
 a step's four launches at 15 R lanes), all seeds succeed, fov cells 13-31 s;
-generic 117.6 ms at the 40-agent fov step's 760 lanes (bound 1.71 ms, 1.45 %;
-streamed 380.5) and 180.5 ms at the 64-agent step's 512 (bound 2.27 ms, 1.26 %;
-streamed 960.0); a resumed checkpointed run equal to the uninterrupted one
+generic 117.6 ms at the 40-agent fov step's 760 lanes (bound 1.71 ms, 1.45 %)
+and 180.5-182.7 ms at the 64-agent step's 512 (bound 2.27 ms, 1.26 %; cluster by
+name 72.9 ms); cluster 106.8-108.7 ms at a 256-lane chunk of the 128-agent step (bound
+3.53 ms, 3.2-3.3 %), 21.6-22.2 ms at the 96-agent ring (bound 0.81 ms), 1.71 s at a
+chunk of 256 agents (rows from device memory, slower than its twin's 1.54 s),
+16.3-16.8 / 109.5-110.9 ms at one team of 128 / 256 connectivity robots; the
+128-agent step 2.1-4.1 s (usable 1.0000, flags equal to the plain loop's on every
+lane, peak 12.3 GiB), the 96-agent step 0.31-0.64 s (usable 1.0000); a resumed checkpointed run equal to the uninterrupted one
 (max |Δ| 0), sharded_rollout on one card bitwise sim.rollout; the deploy graph's
 replans 273-304 ms median, 352-381 ms p95 (21 793 launches a replan: over 100 ms
 budget), both robots at their goals; the audit at 8192 lanes usable 0.9974, 21
 failed lanes, all max-iter at the oracle.
-5 to 10 minutes in all (353-432 s in the runs with the 32-agent and team
+5 to 11 minutes in all (353-432 s in the runs with the 32-agent and team
 phases above, 343-573 s with the slice-6 phases, 541 s with the generic
-kernel's rows, 494-510 s with the last modules' phases); every phase logs its
-wall seconds.
+kernel's rows, 494-510 s with the last modules' phases, 616 s with the
+cluster kernel's before the CBF-only loops were cut to 30 steps, 364 s after);
+every phase logs its wall seconds.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import shutil
@@ -277,16 +290,29 @@ FOV_SHAPES = dict(n=43, m_s=127, m_d=84)      # fov flagship: 36 + 7 slack colum
 CONN_SHAPES = dict(n=36, m_s=126, m_d=6)      # 4-robot connectivity
 SWARM_CONN_SHAPES = dict(n=36, m_s=126, m_d=62)   # 32-agent connectivity
 SWARM_FOV_SHAPES = dict(n=67, m_s=151, m_d=372)   # 32-agent fov: 36 + 31 slack columns
-# shapes without a compiled kernel: the generic kernel's (resident and streamed before it)
+# shapes without a compiled kernel: the generic kernel's
 RUN_SIM_CONN_SHAPES = dict(n=38, m_s=128, m_d=4)  # run_sim connectivity, 3 robots
 TEAM24_FOV_SHAPES = dict(n=59, m_s=143, m_d=276)  # 24-agent fov
 # fov teams of 40 and 64 agents and a 40-robot connectivity team: generic's
-# FromMemory layout (the streamed kernel held them before it). The fov steps
-# run 19 rings of 40 (760 lanes, one lane chunk) and 8 rings of 64 (512
-# lanes: the auto lane_chunk of m_d = 756)
+# FromMemory layout. The fov steps run 19 rings of 40 (760 lanes, one lane
+# chunk) and 8 rings of 64 (512 lanes: the auto lane_chunk of m_d = 756)
 TEAM40_FOV_SHAPES = dict(n=75, m_s=159, m_d=468)
 TEAM64_FOV_SHAPES = dict(n=99, m_s=183, m_d=756)
-TEAM_FOV_RINGS = {40: 19, 64: 8}
+# lanes larger than one SM: the cluster kernel's. fov teams of 96 and 128
+# agents (the steps: one ring of 96, one lane chunk; 4 rings of 128 = 512
+# lanes, two lane chunks of 256) and 256 agents (rows read from device
+# memory; alone, at one lane chunk of 256), the sweep's and run_sim's
+# connectivity teams of 128 and 256 robots (alone, one run_sim team's lanes)
+TEAM96_FOV_SHAPES = dict(zip("n m_s m_d".split(), fused_admm.fov_team_shape(96)))
+TEAM128_FOV_SHAPES = dict(zip("n m_s m_d".split(), fused_admm.fov_team_shape(128)))
+TEAM256_FOV_SHAPES = dict(zip("n m_s m_d".split(), fused_admm.fov_team_shape(256)))
+TEAM128_CONN_SHAPES = dict(n=163, m_s=253, m_d=254)
+TEAM256_CONN_SHAPES = dict(n=291, m_s=381, m_d=510)
+TEAM_FOV_RINGS = {40: 19, 64: 8, 96: 1, 128: 4}
+CHUNK = 256                                  # the auto lane_chunk of m_d >= 1024
+#: rows timed alone, at shapes no phase of the main path launches (the log and
+#: PERF.md keep them; the kernels line lists what the main path ran)
+ALONE = ("cluster_fov64", "cluster_fov256")
 TEAM40_CONN_SHAPES = dict(n=75, m_s=165, m_d=78)
 LAMBDA2_SHAPES = dict(n=36, m_s=126, m_d=14)      # 4-robot connectivity with the λ₂/CLF rows
 BASE_CONFIG = "configs/base_config.json"
@@ -297,12 +323,13 @@ KERNEL = fused_admm.structured_admm_iterations
 KW = dict(sigma=1e-6, alpha=1.6)
 SOURCES = {"tiled": "mpc_cbf_torch/csrc/structured_admm_tiled.cu",
            "folded": "mpc_cbf_torch/csrc/structured_admm_folded.cu",
-           "generic": "mpc_cbf_torch/csrc/structured_admm_generic.cu"}
-#: block-wide barriers of one iteration as the sources write them (generic:
-#: structured_admm_generic.cu; resident, streamed: structured_admm.cu; folded:
-#: structured_admm_folded.cu): a count read from the code, printed beside the
-#: measured times in the log only
-BARRIERS = {"generic": 3, "resident": 8, "streamed": 8, "folded": 5}
+           "generic": "mpc_cbf_torch/csrc/structured_admm_generic.cu",
+           "cluster": "mpc_cbf_torch/csrc/structured_admm_cluster.cu"}
+#: barriers of one iteration as the sources write them (generic:
+#: structured_admm_generic.cu; folded: structured_admm_folded.cu; cluster:
+#: structured_admm_cluster.cu, three block-wide and two cluster-wide): a count
+#: read from the code, printed beside the measured times in the log only
+BARRIERS = {"generic": 3, "folded": 5, "cluster": 5}
 # the card's peaks, NVIDIA's H100 SXM data sheet at 700 W: float32 outside the
 # tensor cores, float64 on the tensor cores (the tiled kernel runs their
 # mma.sync.m8n8k4.f64), HBM3
@@ -397,8 +424,22 @@ def build() -> None:
 
 
 def phase_inputs(B: int, seed: int, shapes=FOV_SHAPES):
-    arrays = fused_admm.random_phase_inputs(np.random.default_rng(seed), B, **shapes)
-    return [torch.from_numpy(a).to(DEV) for a in arrays]
+    """Seeded inputs of one rho phase on the card (a fresh list of the same
+    tensors for the same arguments). Lanes of more than 300 dynamic rows
+    repeat 64 distinct lanes, of more than 1000 rows 8 and of more than 2000
+    rows 2: the host's inverses of [B, m_d, m_d] would otherwise take a minute
+    (the kernels' work does not depend on the values)."""
+    return list(_phase_inputs(B, seed, tuple(shapes.items())))
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_inputs(B: int, seed: int, shapes: tuple) -> tuple:
+    shapes = dict(shapes)
+    m_d = shapes["m_d"]
+    distinct = 2 if m_d > 2000 else 8 if m_d > 1000 else 64 if m_d > 300 else None
+    arrays = fused_admm.random_phase_inputs(np.random.default_rng(seed), B, **shapes,
+                                            distinct=distinct)
+    return tuple(torch.from_numpy(a).to(DEV) for a in arrays)
 
 
 def max_dev(out_k, out_t, what: str) -> float:
@@ -431,12 +472,6 @@ def check_kernel(iters: int = 40) -> dict:
          "generic"),
         ("generic", "32-agent fov through the generic kernel (A_d from memory)",
          SWARM_FOV_SHAPES, 64, "generic"),
-        # the first versions, which generic replaced: launched by name only
-        ("resident", "fov through the first version", FOV_SHAPES, 100, "resident"),
-        ("resident", "32-agent connectivity through the first version", SWARM_CONN_SHAPES, 64,
-         "resident"),
-        ("resident", "run_sim's 3-robot connectivity through the first version",
-         RUN_SIM_CONN_SHAPES, 3, "resident"),
         ("tiled_lambda2", "connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES, 1001, None),
         ("tiled_lambda2", "connectivity with the λ₂/CLF rows, fewer lanes than a block",
          LAMBDA2_SHAPES, 3, None),
@@ -449,12 +484,19 @@ def check_kernel(iters: int = 40) -> dict:
         ("generic_fov64", "64-agent fov (rows from device memory)", TEAM64_FOV_SHAPES, 16, None),
         ("generic", "40-robot connectivity (rows from device memory)", TEAM40_CONN_SHAPES, 64,
          None),
-        # n above every generic layout: the first versions still take such shapes
-        ("resident", "n = 162, no generic layout", dict(n=162, m_s=2, m_d=2), 3, None),
-        ("streamed", "n = 165, no generic layout", dict(n=165, m_s=4, m_d=4), 3, None),
-        ("streamed", "24-agent fov through the first version", TEAM24_FOV_SHAPES, 64, "streamed"),
-        ("streamed", "fov through the streamed kernel", FOV_SHAPES, 100, "streamed"),
-        ("streamed", "32-agent fov through the streamed kernel", SWARM_FOV_SHAPES, 64, "streamed"),
+        # lanes larger than one SM: the cluster kernel (rows on chip but at 256 fov agents)
+        ("cluster_fov96", "96-agent fov", TEAM96_FOV_SHAPES, 4, None),
+        ("cluster_fov128", "128-agent fov", TEAM128_FOV_SHAPES, 4, None),
+        ("cluster_fov128", "128-agent fov, the step's longest phase", TEAM128_FOV_SHAPES, 4, None,
+         max(SWARM_PHASES["fov"])),
+        ("cluster_fov256", "256-agent fov (rows from device memory)", TEAM256_FOV_SHAPES, 2, None),
+        ("cluster_conn128", "128-robot connectivity", TEAM128_CONN_SHAPES, 16, None),
+        ("cluster_conn256", "256-robot connectivity", TEAM256_CONN_SHAPES, 8, None),
+        ("cluster", "n = 162, past every one-block layout", dict(n=162, m_s=2, m_d=2), 3, None),
+        ("cluster", "n = 165, past every one-block layout", dict(n=165, m_s=4, m_d=4), 3, None),
+        # by name at a shape generic's FromMemory takes, for the record
+        ("cluster_fov64", "64-agent fov through the cluster kernel", TEAM64_FOV_SHAPES, 16,
+         "cluster"),
         # the longest phase of the 32-agent fov step: two float32 loops after 550 iterations
         ("folded_swarm_fov", "32-agent fov, the step's longest phase", SWARM_FOV_SHAPES, 64, None,
          max(SWARM_PHASES["fov"])),
@@ -483,7 +525,8 @@ def check_kernel(iters: int = 40) -> dict:
     for what, shapes, bad_lane in (("fov", FOV_SHAPES, 5), ("connectivity", CONN_SHAPES, 10),
                                    ("connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES, 10),
                                    ("32-agent connectivity", SWARM_CONN_SHAPES, 10),
-                                   ("sweep connectivity team of 10", sweep_shapes(10), 10)):
+                                   ("sweep connectivity team of 10", sweep_shapes(10), 10),
+                                   ("128-robot connectivity", TEAM128_CONN_SHAPES, 10)):
         args = phase_inputs(37, seed=2, shapes=shapes)
         clean = KERNEL(*args, iters=iters, **KW)
         args[3] = args[3].clone()
@@ -497,6 +540,25 @@ def check_kernel(iters: int = 40) -> dict:
             raise AssertionError(f"{what}: a NaN lane changed another lane")
         log(f"NaN lane, {what}: lane {bad_lane} is NaN, the other 36 lanes are bitwise unchanged")
     return errs
+
+
+def coverage() -> None:
+    """Every fov team of 2 to 256 agents ((35 + A, 119 + A, 12 (A - 1)),
+    benchmarks/swarm.py's rings) and every connectivity team of 2 to 256
+    robots ((35 + R, 125 + R, 2R - 2), apps/sweep.py's and run_sim's) takes
+    one of the four kernels: structured_admm_variant returns no kNone."""
+    lib = fused_admm._lib()
+    teams = {f"fov {A}": fused_admm.fov_team_shape(A) for A in range(2, 257)}
+    teams.update({f"connectivity {R}": (35 + R, 125 + R, 2 * R - 2) for R in range(2, 257)})
+    took = {name: lib.structured_admm_variant(*shape) for name, shape in teams.items()}
+    missing = [name for name, code in took.items() if code < 0]
+    if missing:
+        raise AssertionError(f"no kernel holds the teams {missing}")
+    counts = {v: sum(fused_admm.VARIANTS[c] == v for c in took.values())
+              for v in fused_admm.VARIANTS}
+    log(f"coverage: all {len(teams)} teams (fov 2-256 agents, connectivity 2-256 robots) take a "
+        f"kernel: {counts}; the largest fov team a kernel holds: "
+        f"{fused_admm.largest_fov_team(lib)} agents")
 
 
 def bound_text(b_ms: float, k_ms: float) -> str:
@@ -529,47 +591,37 @@ def per_iter_text(ms: float, its: int, mhz: float, variant: str) -> str:
             + (f" ({bars} block-wide barriers in the source)" if bars else ""))
 
 
-def time_phases(what: str, shapes, B: int, phases=PHASES, replaced: str | None = None,
+def time_phases(what: str, shapes, B: int, phases=PHASES, variant: str | None = None,
                 reps: int = 5) -> dict:
-    """Device ms of the kernel (the variant the shape takes) and the twin
-    per rho phase length at B lanes, beside the bound; with ``replaced``,
-    the kernel of that name too (the one this shape ran before it got its
-    own), which must be the slower one. Returns the sums over ``phases``:
-    the launches one control step makes on B lanes."""
+    """Device ms of the kernel (the variant the shape takes, or ``variant``
+    launched by name) and the twin per rho phase length at B lanes, beside
+    the bound. Returns the sums over ``phases``: the launches one control
+    step makes on B lanes."""
     args = phase_inputs(B, seed=1, shapes=shapes)
     lib = fused_admm._lib()
+    launch = (lambda kw: KERNEL(*args, **kw)) if variant is None else \
+        (lambda kw: fused_admm.launch_variant(lib, variant, args, **kw))
     per = {}
     for iters in sorted(set(phases)):
         kw = dict(iters=iters, **KW)
-        k_ms = cuda_ms(lambda: KERNEL(*args, **kw), reps=reps)
-        f_ms = cuda_ms(lambda: fused_admm.launch_variant(lib, replaced, args, **kw),
-                       reps=min(reps, 3)) if replaced else None
+        k_ms = cuda_ms(lambda: launch(kw), reps=reps)
         t_ms = cuda_ms(lambda: fused_admm.structured_admm_iterations_ref(*args, **kw),
                        reps=min(reps, 2))
         b_ms, _ = bound(B, **shapes, phases=(iters,))
-        per[iters] = (k_ms, t_ms, f_ms)
+        per[iters] = (k_ms, t_ms)
         log(f"{what}, phase of {iters:3d} iterations at B={B}: kernel {k_ms:.3f} ms, "
-            f"{bound_text(b_ms, k_ms)}, plain twin {t_ms:.3f} ms"
-            + (f", {replaced} kernel {f_ms:.3f} ms" if replaced else ""))
+            f"{bound_text(b_ms, k_ms)}, plain twin {t_ms:.3f} ms")
     k_sum, t_sum = (sum(per[i][j] for i in phases) for j in (0, 1))
     b_ms, by = bound(B, **shapes, phases=phases)
     mhz = sm_clock_mhz()                      # read right after the window
     its = sum(phases)
-    variant = kernel_of_shape(shapes)
+    variant = variant or kernel_of_shape(shapes)
     out = dict(ms=k_sum, plain_ms=t_sum, bound_ms=b_ms, bound_by=by, lanes=B, phases=list(phases),
                us_per_iter=k_sum * 1e3 / its, clocks_per_iter=k_sum * 1e3 / its * mhz)
     msg = (f"{what}, {len(phases)} phases {phases} at B={B}: kernel {k_sum:.3f} ms, "
            f"{bound_text(b_ms, k_sum)}, by {by} (peaks {PEAK_F32 / 1e12:.0f} / "
            f"{PEAK_F64 / 1e12:.0f} TFLOP/s float32 / float64, {PEAK_BYTES / 1e12:.2f} TB/s); "
            f"twin {t_sum:.3f} ms; an iteration {per_iter_text(k_sum, its, mhz, variant)}")
-    if replaced:
-        f_sum = sum(per[i][2] for i in phases)
-        out.update(replaced=replaced, replaced_ms=f_sum)
-        msg += (f"; the {replaced} kernel it replaced {f_sum:.3f} ms ({f_sum / k_sum:.2f}x), an "
-                f"iteration {per_iter_text(f_sum, its, mhz, replaced)}")
-        if f_sum <= k_sum:
-            raise AssertionError(f"{what}: the kernel is not faster than the {replaced} kernel "
-                                 "it replaced")
     log(msg)
     return out
 
@@ -747,7 +799,8 @@ def connectivity_path(batch: int = 32768) -> int:
 
 
 def swarm_path(mode: str, ctrl, inputs, variant: str, timed: dict, usable_bar: float = 0.0,
-               plain: bool = False, split: bool = False) -> int:
+               plain: bool = False, split: bool = False, profile: bool = False,
+               calls: int = 1) -> int:
     """One control step of benchmarks/swarm.py's recipe (SWARM_SOLVER=admm)
     through the kernel route; returns the kernel launches of the call.
     ``timed``: the kernel-alone row of this path, which must have been
@@ -755,7 +808,9 @@ def swarm_path(mode: str, ctrl, inputs, variant: str, timed: dict, usable_bar: f
     what the step measured under "step". ``plain``: the
     same step through the plain loop too (one call); the usable rates must
     agree within 0.01 and the success flags on 99 % of the lanes. ``split``:
-    one more call with a sync around each stage and one under the profiler."""
+    one more call with a sync around each stage; ``profile``: one under the
+    profiler. ``calls``: the step's wall time is the median of that many
+    calls."""
     batch, agents = inputs[0].pos.shape[0], inputs[2].shape[1] + 1
     cfg = StructuredConfig(iters=600, iters_tail=200) if mode == "fov" \
         else StructuredConfig(iters=100)
@@ -771,24 +826,30 @@ def swarm_path(mode: str, ctrl, inputs, variant: str, timed: dict, usable_bar: f
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    t0 = sync_clock()
-    res = step()
-    dt = sync_clock() - t0
-    expected = 4 * -(-batch // chunk)         # 2 IMPC iterations x 2 rho phases per chunk
-    if KERNEL.launches != expected or KERNEL.launches_by_variant[variant] != expected:
-        raise AssertionError(f"{what} step launched {KERNEL.launches_by_variant}, "
-                             f"expected the {variant} kernel {expected} times")
+    res, times = timed_calls(step, calls)
+    dt = statistics.median(times)
+    chunks = -(-batch // chunk)
+    expected = 4 * chunks                     # 2 IMPC iterations x 2 rho phases per chunk
+    if KERNEL.launches != expected * calls or \
+            KERNEL.launches_by_variant[variant] != expected * calls:
+        raise AssertionError(f"{what} step launched {KERNEL.launches_by_variant} in {calls} "
+                             f"calls, expected the {variant} kernel {expected} times a call")
     usable = check_result(res, batch)
     peak = torch.cuda.max_memory_allocated() / 2**30
     timed["step"] = dict(usable=usable, ms=dt * 1e3, peak=peak)
     log(f"{what}, {batch} lanes, ADMM {cfg.iters} iterations, lane_chunk auto = "
-        f"{chunk} lanes ({-(-batch // chunk)} chunks), {variant} kernel x{expected}: usable "
-        f"{usable:.4f}, flyable {float(res.flyable.float().mean()):.4f}, {dt * 1e3:.2f} ms, "
-        f"{batch * 2 / dt:.1f} solves/s, peak device memory {peak:.3f} GiB")
+        f"{chunk} lanes ({chunks} chunks), {variant} kernel x{expected} a call: usable "
+        f"{usable:.4f}, flyable {float(res.flyable.float().mean()):.4f}, "
+        + (spread(times) if calls > 1 else f"{dt * 1e3:.2f} ms")
+        + f", {batch * 2 / dt:.1f} solves/s, peak device memory {peak:.3f} GiB; the kernel "
+        f"alone {timed['ms'] * chunks:.3f} ms of it ({chunks} x {timed['ms']:.3f} at "
+        f"{chunk} lanes; bound {timed['bound_ms'] * chunks:.3f} ms, plain twin "
+        f"{timed['plain_ms'] * chunks:.3f} ms)")
     if usable < usable_bar:
         raise AssertionError(f"{what} ADMM usable rate {usable:.4f} < {usable_bar}")
     if split:
         stage_split(simpc, inputs)
+    if profile:
         profile_call(step)
     if plain:
         slow = StructuredIMPC(ctrl, dataclasses.replace(cfg, use_kernel=False))
@@ -1245,6 +1306,42 @@ def sweep_grid(rows: dict) -> None:
     return grid
 
 
+def sweep_cluster_cells(rows: dict, runtime: float = 1.0) -> None:
+    """apps/sweep.py's connectivity cell at R = 128 and 256 robots, one seed
+    for ``runtime`` seconds, through sweep.main on the card: the structured
+    solve is (35 + R, 125 + R, 2R - 2), past every one-block layout, so each
+    step must launch the cluster kernel 4 times (asserted; the launches of
+    the cluster_conn<R> rows). The reference's radius-4 circle crowds such
+    teams (0.2 m apart at 128 robots): the phase drives the kernel's route,
+    it does not score the flight."""
+    out = _build.BUILD_ROOT / "sweep_cluster.jsonl"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    for R in (128, 256):
+        argv = ["--base", BASE_CONFIG, "--controller", "connectivity", "--sizes", str(R),
+                "--seeds", "1", "--sim-runtime", str(runtime), "--out", str(out)]
+        reset_counts()
+        buf = io.StringIO()
+        t0 = sync_clock()
+        with contextlib.redirect_stdout(buf):
+            rc = sweep.main(argv)                                     # --device: cuda
+        wall = sync_clock() - t0
+        recs = [json.loads(line) for line in out.read_text().splitlines()]
+        if rc != 0 or len(recs) != 1:
+            raise AssertionError(f"sweep connectivity R={R}: rc {rc}, {len(recs)} rows")
+        steps = recs[0]["steps"]
+        by = {k: v for k, v in KERNEL.launches_by_variant.items() if v}
+        if by != {"cluster": len(RUN_SIM_PHASES) * steps}:
+            raise AssertionError(f"sweep connectivity R={R} launched {by} in {steps} steps, "
+                                 f"expected the cluster kernel {len(RUN_SIM_PHASES)} times a step")
+        if not np.isfinite(recs[0]["final_goal_dist_max"]):
+            raise AssertionError(f"sweep connectivity R={R}: a trajectory is not finite")
+        rows[f"cluster_conn{R}"]["launches"] = by["cluster"]
+        log(f"sweep connectivity R={R}, 1 seed x {R} robots = {R} lanes, {steps} steps: "
+            f"{wall:.2f} s ({wall * 1e3 / steps:.2f} ms a step), solver success "
+            f"{recs[0]['solver_success_rate']:.4f}, min separation {recs[0]['min_separation']:.3f} "
+            f"m; structured-kernel launches {by}")
+
+
 def stamp_steps(sim) -> list:
     """Make sim.control_step note the synchronised host time it is entered
     at; returns the list the times go to (the sims are frozen dataclasses,
@@ -1513,10 +1610,10 @@ def sweep_loops() -> None:
     cfg = cfgmod.load_config(BASE_CONFIG)
     cfg["physical_limits"] = dict(cfg["physical_limits"], pos_std=0.0, vel_std=0.0)
     build = lambda name, **kw: run_sim.build_sim(cfg, name, 8, RUN_SIM_ITERS, device=DEV, **kw)[0]
-    sweep_loop("CBFOnlySim, cbf-fov", build("cbf-fov"), 8, 4096, 60, profile_step=True)
+    sweep_loop("CBFOnlySim, cbf-fov", build("cbf-fov"), 8, 4096, 30, profile_step=True)
     sweep_loop("CBFOnlySim, cbf-fov with the particle filter (229376 filters of 256 particles)",
-               build("cbf-fov", use_pf=True), 8, 4096, 60)
-    sweep_loop("CBFOnlySim, cbf-connectivity", build("cbf-connectivity"), 8, 4096, 60)
+               build("cbf-fov", use_pf=True), 8, 4096, 30)
+    sweep_loop("CBFOnlySim, cbf-connectivity", build("cbf-connectivity"), 8, 4096, 30)
     sweep_loop("BezierMPCSim, mpc", build("mpc"), 8, 1024, 20)
     dense = build("fov")
     sweep_loop("MultiAgentSim(structured=False), fov through the dense ADMM",
@@ -1832,41 +1929,56 @@ def main() -> int:
     if run_sim_team() != (RUN_SIM_CONN_SHAPES, RUN_SIM_PHASES):
         raise AssertionError(f"run_sim's 3-robot connectivity solve is {run_sim_team()}")
     errs = phase("kernels against the twin", check_kernel)
+    phase("coverage of the team sizes", coverage)
 
     def time_kernels() -> dict:
         return {
-            "tiled_fov": time_phases("fov", FOV_SHAPES, 8192, replaced="resident"),
-            "tiled_connectivity": time_phases("connectivity", CONN_SHAPES, 32768,
-                                              replaced="resident"),
+            "tiled_fov": time_phases("fov", FOV_SHAPES, 8192),
+            "tiled_connectivity": time_phases("connectivity", CONN_SHAPES, 32768),
             # at the lanes and phase lengths the 32-agent steps below give a launch:
             # all 4096 lanes, and one lane chunk of 2048
             "folded_swarm_connectivity": time_phases(
                 "32-agent connectivity", SWARM_CONN_SHAPES, 4096,
-                phases=SWARM_PHASES["connectivity"], replaced="resident"),
+                phases=SWARM_PHASES["connectivity"]),
             "folded_swarm_fov": time_phases("32-agent fov", SWARM_FOV_SHAPES, 2048,
-                                            phases=SWARM_PHASES["fov"], replaced="streamed",
-                                            reps=3),
+                                            phases=SWARM_PHASES["fov"], reps=3),
             # the 4-robot connectivity step with the λ₂/CLF rows
             "tiled_lambda2": time_phases("connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES,
-                                         32768, replaced="resident"),
+                                         32768),
             # the generic kernel, at the lanes a launch gets from run_sim's 3-robot team
             # (the command-line phase) and from the 24-agent step below
             "generic": time_phases("run_sim's 3-robot connectivity", RUN_SIM_CONN_SHAPES, 3,
-                                   phases=RUN_SIM_PHASES, replaced="resident"),
+                                   phases=RUN_SIM_PHASES),
             "generic_team24": time_phases("24-agent fov", TEAM24_FOV_SHAPES, 768,
-                                          phases=SWARM_PHASES["fov"], replaced="streamed",
-                                          reps=1),
+                                          phases=SWARM_PHASES["fov"], reps=1),
             # the 40- and 64-agent fov steps below (FromMemory): the lanes of a launch
             **{f"generic_fov{A}": time_phases(
                 f"{A}-agent fov", shapes, TEAM_FOV_RINGS[A] * A, phases=SWARM_PHASES["fov"],
-                replaced="streamed", reps=1)
+                reps=1)
                for A, shapes in ((40, TEAM40_FOV_SHAPES), (64, TEAM64_FOV_SHAPES))},
+            # the cluster kernel by name at the 64-agent step's launch, beside FromMemory
+            "cluster_fov64": time_phases("64-agent fov, the cluster kernel by name",
+                                         TEAM64_FOV_SHAPES, TEAM_FOV_RINGS[64] * 64,
+                                         phases=SWARM_PHASES["fov"], variant="cluster", reps=1),
+            # the 96- and 128-agent fov steps below: one ring of 96, a lane chunk of 256
+            "cluster_fov96": time_phases("96-agent fov", TEAM96_FOV_SHAPES, 96,
+                                         phases=SWARM_PHASES["fov"], reps=3),
+            "cluster_fov128": time_phases("128-agent fov", TEAM128_FOV_SHAPES, CHUNK,
+                                          phases=SWARM_PHASES["fov"], reps=3),
+            # alone: a lane chunk of a 256-agent fov step, one run_sim team of 128 and of 256
+            "cluster_fov256": time_phases("256-agent fov", TEAM256_FOV_SHAPES, CHUNK,
+                                          phases=SWARM_PHASES["fov"], reps=1),
+            **{f"cluster_conn{R}": time_phases(
+                f"{R}-robot connectivity", shapes, R, phases=RUN_SIM_PHASES, reps=3)
+               for R, shapes in ((128, TEAM128_CONN_SHAPES), (256, TEAM256_CONN_SHAPES))},
             # the sweep's connectivity teams: 15 seeds x R robots a launch
             **{f"generic_sweep_r{R}": time_phases(
                 f"sweep connectivity team of {R}", sweep_shapes(R), SWEEP_SEEDS * R,
-                phases=RUN_SIM_PHASES, replaced="resident") for R in SWEEP_SIZES},
+                phases=RUN_SIM_PHASES) for R in SWEEP_SIZES},
         }
     rows = phase("kernels timed alone", time_kernels)
+    _phase_inputs.cache_clear()
+    torch.cuda.empty_cache()
     rows["tiled_fov"]["launches"] = phase("fov ADMM step", fov_main_path)
     rows["tiled_connectivity"]["launches"] = phase("connectivity ADMM step", connectivity_path)
     rows["folded_swarm_connectivity"]["launches"] = phase(
@@ -1874,7 +1986,7 @@ def main() -> int:
         "folded", rows["folded_swarm_connectivity"], usable_bar=0.99)
     rows["folded_swarm_fov"]["launches"] = phase(
         "32-agent fov step", swarm_path, "fov", *swarm["fov"], "folded",
-        rows["folded_swarm_fov"], usable_bar=0.97, plain=True, split=True)
+        rows["folded_swarm_fov"], usable_bar=0.97, plain=True, split=True, profile=True)
     for mode in ("connectivity", "fov"):
         phase(f"32-agent {mode} step, f32 IPM", swarm_ipm_path, mode, *swarm[mode],
               rows[f"folded_swarm_{mode}"]["step"])
@@ -1883,12 +1995,18 @@ def main() -> int:
         plain=True)
     del swarm, team24
     torch.cuda.empty_cache()
-    for A, shapes in ((40, TEAM40_FOV_SHAPES), (64, TEAM64_FOV_SHAPES)):
+    for A, shapes, variant in ((40, TEAM40_FOV_SHAPES, "generic"),
+                               (64, TEAM64_FOV_SHAPES, "generic"),
+                               (96, TEAM96_FOV_SHAPES, "cluster"),
+                               (128, TEAM128_FOV_SHAPES, "cluster")):
         team = swarm_problem("fov", scenarios=TEAM_FOV_RINGS[A], A=A)
         if controller_shapes(team[0]) != shapes:
             raise AssertionError(f"{A}-agent fov shapes {controller_shapes(team[0])}")
-        rows[f"generic_fov{A}"]["launches"] = phase(
-            f"{A}-agent fov step", swarm_path, "fov", *team, "generic", rows[f"generic_fov{A}"])
+        # the cluster steps: flags against the plain loop, the wall time a median of 3 calls
+        big = variant == "cluster"
+        rows[f"{variant}_fov{A}"]["launches"] = phase(
+            f"{A}-agent fov step", swarm_path, "fov", *team, variant, rows[f"{variant}_fov{A}"],
+            plain=big, calls=3 if big else 1, split=A == 128)
         del team
         torch.cuda.empty_cache()
     rows["tiled_lambda2"]["launches"] = phase("λ₂ connectivity step", lambda2_path,
@@ -1908,6 +2026,7 @@ def main() -> int:
     phase("polish, card against host", polish_card_vs_host)
     phase("polish against the oracle", polish_vs_oracle)
     grid = phase("sweep grid", sweep_grid, rows)
+    phase("sweep cells of 128 and 256 robots", sweep_cluster_cells, rows)
     phase("checkpoint/resume", checkpoint_phase)
     phase("scenario sharding", sharding_phase)
     phase("deploy", deploy_phase)
@@ -1924,9 +2043,8 @@ def main() -> int:
         "launches": r["launches"], "max_abs_err": errs[row], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None, "lanes": r["lanes"], "phases": r["phases"],
-        "replaced": r.get("replaced"), "replaced_ms": r.get("replaced_ms"),
         "us_per_iter": r["us_per_iter"], "clocks_per_iter": r["clocks_per_iter"]}
-        for row, r in rows.items()]}))
+        for row, r in rows.items() if row not in ALONE]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,8 +17,8 @@
 // bound the kernel is held against). The lane's A_d is 24 924 words and
 // its WK as many: A_d fits the 65 536-word register file of an SM once, a
 // float64 WK (199 KB) does not fit a block's 227 KB of shared memory beside
-// anything else. The kernel this one replaces (structured_admm.cu's
-// streamed kernel) therefore left both in device memory and read 399 KB a
+// anything else. The kernel this one replaced (the streamed kernel, removed
+// since) therefore left both in device memory and read 399 KB a
 // lane and iteration: it ran at the rate of L2, 0.6 % of the bound.
 //
 // What this design does about it:
@@ -75,14 +75,6 @@ __host__ __device__ constexpr int round_up(int a, int b) { return cdiv(a, b) * b
 // half-warp loads for an mma fragment (4 rows, 4 consecutive columns) then
 // fall on 32 distinct banks
 __host__ __device__ constexpr int pad_ld(int x) { return round_up(x + 4, 8) - 4; }
-
-// D (8 x 8) += A (8 x 4, row-major fragments) B (4 x 8, column-major
-// fragments) in float64. Thread t of the warp gives A[t / 4][t % 4] and
-// B[t % 4][t / 4] and holds D[t / 4][2 (t % 4)] and D[t / 4][2 (t % 4) + 1].
-__device__ __forceinline__ void mma_f64(double& d0, double& d1, double a, double b) {
-  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};"
-               : "+d"(d0), "+d"(d1) : "d"(a), "d"(b));
-}
 
 // One warp: acc[j] += A[i0 .. i0 + 8, 0 .. 4 ksteps) B[0 .. 4 ksteps, j0 + 8 j .. + 8)
 // for j < JT, A [rows, lda] and B [k, ldb] in shared memory.

@@ -8,9 +8,7 @@
 //
 // Replaces the Pallas TPU kernel mpc_cbf_tpu/ops/qp/pallas_admm.py::_kernel
 // (launched by structured_admm_iterations, pl.pallas_call at :170); what
-// one iteration computes is written out in structured_admm.cu. It takes the
-// place of that file's resident and streamed kernels, which stay launchable
-// by name for comparison only.
+// one iteration computes is written out in structured_admm.cu.
 //
 // The numbers that decide the design. At the sweep's largest team (45, 135,
 // 18) an iteration is 2 x 153 x 45 = 13 770 float32 multiply-adds and 2 025
@@ -56,8 +54,8 @@
 //    and connectivity team that the streamed kernel held and more (fov teams
 //    to 84 agents where streamed held 76, connectivity teams to 89 robots
 //    where it held 84). A shape no layout here holds (n above 160, or C and
-//    the row state of thousands of rows past a block's 227 KB) goes to the
-//    first versions in structured_admm.cu where they hold it;
+//    the row state of thousands of rows past a block's 227 KB) goes to
+//    structured_admm_cluster.cu, one lane on several SMs;
 //    structured_admm_variant() decides.
 // One lane a block: a NaN lane cannot reach another lane.
 // What the card measured, and the layouts tried (16 rows a warp, a
@@ -150,52 +148,6 @@ bool fits(int n, int m_s, int m_d) {
   const int m = m_s + m_d;
   if (n > 32 * S::TC || (S::REG && cdiv(m, kRW) > S::MAXW)) return false;
   return layout_of<S>(n, m_s, m_d).bytes <= kMaxSharedBytes;
-}
-
-// D (8 x 8) += A (8 x 4, row-major fragments) B (4 x 8, column-major
-// fragments) in float64. Thread t of the warp gives A[t / 4][t % 4] and
-// B[t % 4][t / 4] and holds D[t / 4][2 (t % 4)] and D[t / 4][2 (t % 4) + 1].
-__device__ __forceinline__ void mma_f64(double& d0, double& d1, double a, double b) {
-  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};"
-               : "+d"(d0), "+d"(d1) : "d"(a), "d"(b));
-}
-
-// The (8 mt) x (8 nt) product sum_k X[i, k] Y[k, j], k < 4 ksteps, on the
-// float64 tensor cores: xf(i, k) and yf(k, j) give the operands (zero beyond
-// the matrices), put(i, j, v) takes each element of the result once. A warp
-// takes two 8 x 8 tiles side by side at a time.
-template <class XF, class YF, class Put>
-__device__ __forceinline__ void mma_product(int mt, int nt, int ksteps, int nw, XF xf, YF yf,
-                                            Put put) {
-  const int w = threadIdx.x / 32, t = threadIdx.x % 32, r = t / 4, kc = t % 4;
-  const int pairs = cdiv(nt, 2);
-  for (int u = w; u < mt * pairs; u += nw) {
-    const int i0 = (u / pairs) * 8, j0 = (u % pairs) * 16;
-    const bool two = j0 + 8 < 8 * nt;
-    double d[2][2] = {{0.0, 0.0}, {0.0, 0.0}};
-    for (int ks0 = 0; ks0 < ksteps; ks0 += 4) {
-      double av[4], b0[4], b1[4];
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {          // four k-steps' loads first: from L2 they overlap
-        const int k = 4 * (ks0 + s) + kc;
-        const bool in = ks0 + s < ksteps;
-        av[s] = in ? xf(i0 + r, k) : 0.0;
-        b0[s] = in ? yf(k, j0 + r) : 0.0;
-        b1[s] = in && two ? yf(k, j0 + 8 + r) : 0.0;
-      }
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        if (ks0 + s < ksteps) {
-          mma_f64(d[0][0], d[0][1], av[s], b0[s]);
-          if (two) mma_f64(d[1][0], d[1][1], av[s], b1[s]);
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        if (j == 0 || two) put(i0 + r, j0 + 8 * j + 2 * kc + e, d[j][e]);
-  }
 }
 
 template <int TC>

@@ -10,18 +10,19 @@ fov and connectivity control steps), ``folded`` for those of
 ``csrc/structured_admm_folded.cu`` (the 32-agent fov and connectivity
 teams: one lane a block, the Woodbury correction S - WK (Ad S) folded into
 one float64 matrix a lane, C = (I - WK Ad) Ms_inv), ``generic`` for the
-other shapes to n = 160 (``csrc/structured_admm_generic.cu``: the same
-folded form for shapes known only at run time, such as the sweep's and
-run_sim's connectivity teams and the fov teams of other sizes).
-``resident`` and ``streamed``, the first versions of the kernel
-(``csrc/structured_admm.cu``), take only the shapes that no layout of
-``generic`` holds and that they held before it (n above 160, or thousands
-of rows); ``launch_variant`` also runs them by name, to time them beside the
-kernel that replaced them. A shape no kernel holds (a lane past a block's
-shared memory in every kernel) raises. On CPU tensors it runs the twin
-``structured_admm_iterations_ref``, which is the scan body of
-``mpc_cbf_tpu/ops/qp/structured.py:442-463`` as a Python loop. Any other
-CUDA input raises: there is no silent fallback.
+other shapes whose lane fits one block, to n = 160
+(``csrc/structured_admm_generic.cu``: the same folded form for shapes known
+only at run time, such as the sweep's and run_sim's connectivity teams and
+the fov teams to 84 agents), and ``cluster`` for the lanes larger than one
+SM (``csrc/structured_admm_cluster.cu``: the folded form with one lane a
+thread-block cluster of 2 to 8 blocks that read each other's shared memory;
+fov teams from 85 agents, connectivity teams from 90 robots).
+``launch_variant`` runs a kernel by name, to time or check it at a shape
+that takes another. A shape no kernel holds (a lane whose float64 C and row
+state exceed eight blocks' shared memory: fov teams past 381 agents) raises.
+On CPU tensors it runs the twin ``structured_admm_iterations_ref``, which
+is the scan body of ``mpc_cbf_tpu/ops/qp/structured.py:442-463`` as a
+Python loop. Any other CUDA input raises: there is no silent fallback.
 
 Inputs are batch-first and already scaled (as ``_solve`` makes them):
   qb, x0 [B, n]; lbs, ubs, zs0, ys0 [B, m_s]; Ad [B, m_d, n]; lbd, ubd,
@@ -46,7 +47,7 @@ from mpc_cbf_torch import _build
 Tensor = torch.Tensor
 #: kernel variants, indexed by the code ``structured_admm_variant`` returns
 #: (``AdmmVariant`` in csrc/structured_admm.cuh; -1: no kernel holds the shape)
-VARIANTS = ("tiled", "resident", "streamed", "folded", "generic")
+VARIANTS = ("tiled", "folded", "generic", "cluster")
 State5 = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]
 
 
@@ -168,9 +169,12 @@ def structured_admm_iterations(
     lib = _lib()
     code = lib.structured_admm_variant(n, m_s, m_d)
     if code < 0:
-        raise ValueError(f"structured_admm_iterations: no kernel holds the shape (n={n}, "
-                         f"m_s={m_s}, m_d={m_d}): a lane's operands exceed a block's "
-                         "shared memory")
+        A = largest_fov_team(lib)
+        raise ValueError(
+            f"structured_admm_iterations: no kernel holds the shape (n={n}, m_s={m_s}, "
+            f"m_d={m_d}): a lane's float64 C and row state exceed the shared memory of a "
+            f"cluster of 8 blocks. The largest fov team a kernel holds is {A} agents, "
+            f"(n, m_s, m_d) = {fov_team_shape(A)}")
     variant = VARIANTS[code]
     outs = launch_variant(lib, variant, args, iters=iters, sigma=sigma, alpha=alpha)
     structured_admm_iterations.launches += 1
@@ -178,18 +182,39 @@ def structured_admm_iterations(
     return outs
 
 
+def fov_team_shape(A: int) -> Tuple[int, int, int]:
+    """(n, m_s, m_d) of a fov team of A agents (benchmarks/swarm.py's rings:
+    A - 1 neighbours, slack mode), the family of shapes that grows fastest."""
+    return 35 + A, 119 + A, 12 * (A - 1)
+
+
+def largest_fov_team(lib: ctypes.CDLL) -> int:
+    """The largest fov team that some kernel of ``lib`` holds."""
+    A = 2
+    while lib.structured_admm_variant(*fov_team_shape(A + 1)) >= 0:
+        A += 1
+    return A
+
+
 structured_admm_iterations.launches = 0
 structured_admm_iterations.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def random_phase_inputs(rng: np.random.Generator, B: int, n: int, m_s: int, m_d: int,
-                        inactive_frac: float = 0.25):
+                        inactive_frac: float = 0.25, distinct: int | None = None):
     """Seeded, well-posed inputs for one rho phase, made the way ``_solve``
     makes them: an SPD shared system M_s and its f64 inverse, per-lane
     dynamic rows with some inactive (rho_d = 1e-12, bounds +-1e20), the
     folded Woodbury WK, and a clipped initial state. Returns float32 numpy
     arrays in the argument order of ``structured_admm_iterations``.
-    Used to hold the kernel against its twin."""
+    Used to hold the kernel against its twin. ``distinct``: make that many
+    lanes and repeat them to B (a timing at hundreds of lanes of a large team
+    would otherwise wait minutes for the host's inverses of [B, m_d, m_d])."""
+    if distinct is not None and distinct < B:
+        arrays = random_phase_inputs(rng, distinct, n, m_s, m_d, inactive_frac)
+        reps = -(-B // distinct)
+        return arrays[:3] + tuple(np.ascontiguousarray(np.concatenate([a] * reps)[:B])
+                                  for a in arrays[3:])
     A_s = rng.normal(size=(m_s, n)) / np.sqrt(n)
     G = rng.normal(size=(n, n)) / np.sqrt(n)
     # well-conditioned (cond(M_s) ~ 10), so that 40 float32 iterations stay

@@ -5,7 +5,8 @@
                                          [--swarm-conn LAYOUT ...] [--swarm-fov LAYOUT ...]
                                          [--folded-at fov|lambda2 LAYOUT ...]
                                          [--generic LAYOUT ...] [--generic-team24 LAYOUT ...]
-                                         [--generic-wide LAYOUT ...] [--timing-check]
+                                         [--generic-wide LAYOUT ...] [--cluster [LAYOUT ...]]
+                                         [--timing-check]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and nvcc.
 The package's kernel sources carry one layout per shape: the ``Shape<...>``
@@ -27,22 +28,28 @@ iterations) and times one rho phase of each length of a control step at the
 lanes a launch gets there (CUDA events, mean of 3 launches after a warm-up):
 150 + 50 + 32 + 32 iterations at 8192 fov lanes and 32768 connectivity
 lanes, 4 x 50 at the 4096 lanes of the 32-agent connectivity step, 550 + 50
-+ 150 + 50 at one 2048-lane chunk of the 32-agent fov step. The kernel each
-replaced (resident; streamed for the 32-agent fov shape) is timed beside
-them. --folded-at tries the folded kernel at a shape the package gives to
++ 150 + 50 at one 2048-lane chunk of the 32-agent fov step. --folded-at tries the folded kernel at a shape the package gives to
 the tiled kernel (fov or lambda2): the copy's ``SwarmConn`` line of the
 folded source becomes that shape with the layouts T,RG,CG,KC, launched by
 name beside the tiled kernel of the same copy (so not together with
 --swarm-conn, which rewrites the same line). --generic times the generic
 kernel (csrc/structured_admm_generic.cu) at the sweep's team of 10 (45, 135,
 18) on 150 lanes and run_sim's 3-robot team (38, 128, 4) on 3 lanes (150 +
-50 + 150 + 50 iterations), beside the resident kernel it replaced, with the
-copy's ``RegN64`` line (the one both shapes take) changed; --generic-team24
-at the 24-agent fov team (59, 143, 276) on 768 lanes (550 + 50 + 150 + 50),
-beside the streamed kernel, with the ``RegN64Tall`` line changed;
---generic-wide at the fov teams of 40 and 64 agents (75, 159, 468), (99,
-183, 756) on 768 lanes (the same phases), beside the streamed kernel, with
-the ``FromMemory`` line changed. A LAYOUT of
+50 + 150 + 50 iterations), with the copy's ``RegN64`` line (the one both
+shapes take) changed; --generic-team24 at the 24-agent fov team (59, 143,
+276) on 768 lanes (550 + 50 + 150 + 50), with the ``RegN64Tall`` line
+changed; --generic-wide at the fov teams of 40 and 64 agents (75, 159, 468),
+(99, 183, 756) on 768 lanes (the same phases), with the ``FromMemory`` line
+changed. --cluster times the cluster kernel (csrc/structured_admm_cluster.cu)
+with the copy's ``kLayouts`` line reduced to one layout CS,chip or CS,mem
+(blocks a lane, the rows of [A_s; A_d] in the cluster's shared memory or
+read from device memory; none named: 2, 4 and 8 blocks each way) at the fov
+teams of 96, 128 and 256 agents on 96, 256 and 256 lanes (the lanes of one
+launch of benchmarks/swarm.py's step: one ring of 96, a lane chunk of 256;
+550 + 50 + 150 + 50) and the connectivity teams of 128 and 256 robots on
+128 and 256 lanes (one run_sim team; 150 + 50 + 150 + 50); a layout that
+does not hold a shape is reported as refused. Inputs of the cluster shapes
+repeat 8 distinct lanes. A LAYOUT of
 the generic kernel is TC,MAXW,REG[,P[,MINB]]: GenericShape<TC, MAXW, REG, P,
 MINB> (column slots a lane, warps a block at most, [A_s; A_d] in registers
 (true) or read each iteration (false), threads a row of C (default 4),
@@ -73,38 +80,48 @@ from mpc_cbf_torch.ops.qp import fused_admm           # noqa: E402
 
 PHASES = (150, 50, 32, 32)
 #: what an option times: lanes a launch, (n, m_s, m_d), the step's phases, the using-name
-#: in the source, the source, its variant, the variant timed beside it
+#: in the source, the source, its variant, the variant timed beside it (or None)
 Target = collections.namedtuple("Target", "lanes shape phases alias source variant beside")
 TILED, FOLDED = "structured_admm_tiled.cu", "structured_admm_folded.cu"
-GENERIC = "structured_admm_generic.cu"
+GENERIC, CLUSTER = "structured_admm_generic.cu", "structured_admm_cluster.cu"
 RUN_SIM_PHASES = (150, 50, 150, 50)
-SHAPES = {"fov": Target(8192, (43, 127, 84), PHASES, "Fov", TILED, "tiled", "resident"),
-          "conn": Target(32768, (36, 126, 6), PHASES, "Conn", TILED, "tiled", "resident"),
-          "lambda2": Target(32768, (36, 126, 14), PHASES, "ConnLambda2", TILED, "tiled", "resident"),
+SWARM_FOV_PHASES = (550, 50, 150, 50)
+SHAPES = {"fov": Target(8192, (43, 127, 84), PHASES, "Fov", TILED, "tiled", None),
+          "conn": Target(32768, (36, 126, 6), PHASES, "Conn", TILED, "tiled", None),
+          "lambda2": Target(32768, (36, 126, 14), PHASES, "ConnLambda2", TILED, "tiled", None),
           "swarm_conn": Target(4096, (36, 126, 62), (50, 50, 50, 50), "SwarmConn", FOLDED, "folded",
-                               "resident"),
-          "swarm_fov": Target(2048, (67, 151, 372), (550, 50, 150, 50), "SwarmFov", FOLDED,
-                              "folded", "streamed"),
+                               None),
+          "swarm_fov": Target(2048, (67, 151, 372), SWARM_FOV_PHASES, "SwarmFov", FOLDED,
+                              "folded", None),
           # --folded-at: the folded kernel at shapes the package gives to the tiled kernel
           "fov_folded": Target(8192, (43, 127, 84), PHASES, "SwarmConn", FOLDED, "folded", "tiled"),
           "lambda2_folded": Target(32768, (36, 126, 14), PHASES, "SwarmConn", FOLDED, "folded",
                                    "tiled"),
           # --generic: both shapes take the RegN64 line of the generic source
           "generic_sweep_r10": Target(150, (45, 135, 18), RUN_SIM_PHASES, "RegN64", GENERIC,
-                                      "generic", "resident"),
+                                      "generic", None),
           "generic_run_sim": Target(3, (38, 128, 4), RUN_SIM_PHASES, "RegN64", GENERIC, "generic",
-                                    "resident"),
+                                    None),
           # --generic-team24: the RegN64Tall line
-          "generic_team24": Target(768, (59, 143, 276), (550, 50, 150, 50), "RegN64Tall", GENERIC,
-                                   "generic", "streamed"),
+          "generic_team24": Target(768, (59, 143, 276), SWARM_FOV_PHASES, "RegN64Tall", GENERIC,
+                                   "generic", None),
           # --generic-wide: the FromMemory line
-          "generic_team40": Target(768, (75, 159, 468), (550, 50, 150, 50), "FromMemory", GENERIC,
-                                   "generic", "streamed"),
-          "generic_team64": Target(768, (99, 183, 756), (550, 50, 150, 50), "FromMemory", GENERIC,
-                                   "generic", "streamed")}
+          "generic_team40": Target(768, (75, 159, 468), SWARM_FOV_PHASES, "FromMemory", GENERIC,
+                                   "generic", None),
+          "generic_team64": Target(768, (99, 183, 756), SWARM_FOV_PHASES, "FromMemory", GENERIC,
+                                   "generic", None),
+          # --cluster: the kLayouts line
+          **{f"cluster_fov{A}": Target(lanes, fused_admm.fov_team_shape(A), SWARM_FOV_PHASES,
+                                       "kLayouts", CLUSTER, "cluster", None)
+             for A, lanes in ((96, 96), (128, 256), (256, 256))},
+          **{f"cluster_conn{R}": Target(R, (35 + R, 125 + R, 2 * R - 2), RUN_SIM_PHASES,
+                                        "kLayouts", CLUSTER, "cluster", None)
+             for R in (128, 256)}}
 GENERIC_TARGETS = {"generic": ("generic_sweep_r10", "generic_run_sim"),
                    "generic_team24": ("generic_team24",),
                    "generic_wide": ("generic_team40", "generic_team64")}
+CLUSTER_TARGETS = tuple(name for name in SHAPES if name.startswith("cluster"))
+CLUSTER_LAYOUTS = ["2,chip", "4,chip", "8,chip", "2,mem", "4,mem", "8,mem"]
 KW = dict(sigma=1e-6, alpha=1.6)
 
 
@@ -134,7 +151,13 @@ def build(layouts: dict):
         for name, layout in layouts.items():
             alias = SHAPES[name].alias
             numbers = layout.count(",") + 1           # tiled: 3 (G,L,TPL) or 5 (RG,CG too); folded: 3
-            if name.startswith("generic"):           # the whole line: another layout
+            if name.startswith("cluster"):           # one layout: CS,chip or CS,mem
+                cs, place = layout.split(",")
+                text, n = re.subn(r"constexpr ClusterChoice kLayouts\[\] = \{.*\};",
+                                  f"constexpr ClusterChoice kLayouts[] = {{{{{cs}, "
+                                  f"{'true' if place == 'chip' else 'false'}}}}};", text)
+                n = min(n, 1)                         # every cluster target names the same line
+            elif name.startswith("generic"):           # the whole line: another layout
                 fields = layout.split(",")
                 text, n = re.subn(rf"using {alias} = GenericShape<[^>]*>",
                                   f"using {alias} = GenericShape<{', '.join(fields)}>", text)
@@ -159,7 +182,9 @@ def build(layouts: dict):
     for name in layouts:
         n, m_s, m_d = SHAPES[name].shape
         key = f"ShapeILi{n}ELi{m_s}ELi{m_d}E"
-        if name.startswith("generic"):                # GenericShape<TC, MAXW, REG, P>
+        if name.startswith("cluster"):                # cluster_kernel<ROWS>
+            key = f"ILb{int(layouts[name].endswith('chip'))}E"
+        elif name.startswith("generic"):                # GenericShape<TC, MAXW, REG, P>
             tc, maxw, reg, *rest = (f.strip() for f in layouts[name].split(","))
             p, minb = (rest + ["4", "1"][len(rest):])[:2]
             key = f"GenericShapeILi{tc}ELi{maxw}ELb{int(reg == 'true')}ELi{p}ELi{minb}E"
@@ -218,12 +243,17 @@ def main():
     ap.add_argument("--generic-wide", nargs="*",
                     help="TC,MAXW,REG[,P[,MINB]] layouts of the generic kernel at the fov teams "
                          "of 40 and 64 agents, e.g. 5,8,false 5,16,false")
+    ap.add_argument("--cluster", nargs="*",
+                    help="CS,chip or CS,mem layouts of the cluster kernel (none named: "
+                         + " ".join(CLUSTER_LAYOUTS) + ")")
     ap.add_argument("--timing-check", action="store_true",
                     help="time the package's generic kernel with and without the spin")
     opt = ap.parse_args()
     asked = {name: getattr(opt, name) for name in SHAPES
-             if not name.endswith("_folded") and not name.startswith("generic")
+             if not name.endswith("_folded") and not name.startswith(("generic", "cluster"))
              and getattr(opt, name)}
+    if opt.cluster is not None:
+        asked.update({name: opt.cluster or CLUSTER_LAYOUTS for name in CLUSTER_TARGETS})
     for option, targets in GENERIC_TARGETS.items():
         held = []              # layouts every target of the option holds: they rewrite one line
         for layout in getattr(opt, option) or ():
@@ -256,9 +286,12 @@ def main():
     data, ref = {}, {}
     for name in asked:
         B, shape = SHAPES[name].lanes, SHAPES[name].shape
-        arrays = fused_admm.random_phase_inputs(np.random.default_rng(1), B, *shape)
+        big = name.startswith("cluster")
+        arrays = fused_admm.random_phase_inputs(np.random.default_rng(1), B, *shape,
+                                                distinct=8 if big else None)
         data[name] = [torch.from_numpy(a).cuda() for a in arrays]
-        small = [a[:256].contiguous() if a.shape[0] == B else a for a in data[name]]
+        keep = 16 if big else 256
+        small = [a[:keep].contiguous() if a.shape[0] == B else a for a in data[name]]
         ref[name] = (small, fused_admm.structured_admm_iterations_ref(*small, iters=20, **KW))
 
     for i in range(max(map(len, asked.values()))):
@@ -273,7 +306,9 @@ def main():
         if i == 0:
             for name, args in data.items():
                 phases, old = SHAPES[name].phases, SHAPES[name].beside
-                total, per = step_ms(lib, old, args, phases, reps=1 if old == "streamed" else 3)
+                if old is None:
+                    continue
+                total, per = step_ms(lib, old, args, phases)
                 print(f"{name}: beside it the {old} kernel, control step {total:.3f} ms ("
                       + ", ".join(f"{it}: {ms:.3f}" for it, ms in per.items()) + ")")
         for name, args in data.items():

@@ -13,9 +13,9 @@ and 10 (37, 127, 2), (45, 135, 18), a 24-agent fov team (59, 143, 276)) for
 tests/test_pallas_admm.py:53-55 between two float32 loops that sum in
 another order. The folded form of the loop (the algebra of the ``folded``
 kernel) and the generic kernel's three stages (``generic_loop``) are held to
-the twin and to the Pallas kernel at the same bar. On the card every kernel
-variant (tiled, folded, generic, and the first versions resident and
-streamed, launched by name) is held to it too.
+the twin and to the Pallas kernel at the same bar (the ``cluster`` kernel's
+loop: tests/test_torch_cluster.py). On the card every kernel variant (tiled,
+folded, generic, cluster) is held to it too.
 
 The cases marked ``cuda`` import no JAX, so that they also run where the
 GPU is and JAX is not (tests/conftest.py imports JAX, hence --noconftest):
@@ -47,6 +47,11 @@ SWEEP_R2, SWEEP_R10 = (37, 127, 2), (45, 135, 18)
 # connectivity team (35 + R, 125 + R, 2 R - 2): the generic kernel reads their
 # rows from device memory
 TEAM40_FOV, TEAM64_FOV, TEAM40_CONN = (75, 159, 468), (99, 183, 756), (75, 165, 78)
+# lanes larger than one SM (the cluster kernel): fov teams of 85, 96, 128 and
+# 256 agents, connectivity teams of 128 and 256 robots
+TEAM85_FOV, TEAM96_FOV = fused_admm.fov_team_shape(85), fused_admm.fov_team_shape(96)
+TEAM128_FOV, TEAM256_FOV = fused_admm.fov_team_shape(128), fused_admm.fov_team_shape(256)
+TEAM128_CONN, TEAM256_CONN = (163, 253, 254), (291, 381, 510)
 KW = dict(iters=40, sigma=1e-6, alpha=1.6)
 
 
@@ -248,8 +253,8 @@ def test_build_flags():
     assert _build.BUILD_ROOT.parts[-2:] == ("build", "kernels")
     assert "-shared" not in _build.NVCC_FLAGS     # sources compile apart, one link at the end
     assert [p.name for p in _build.SOURCES] == [
-        "structured_admm.cu", "structured_admm_folded.cu", "structured_admm_generic.cu",
-        "structured_admm_tiled.cu"]
+        "structured_admm.cu", "structured_admm_cluster.cu", "structured_admm_folded.cu",
+        "structured_admm_generic.cu", "structured_admm_tiled.cu"]
     assert [p.name for p in _build.HEADERS] == ["structured_admm.cuh"]
 
 
@@ -277,8 +282,14 @@ def _need_gpu():
     (TEAM40_FOV, 16, "generic"),     # rows from device memory (FromMemory)
     (TEAM64_FOV, 8, "generic"),
     (TEAM40_CONN, 16, "generic"),
-    ((162, 2, 2), 3, "resident"),    # n above every generic layout: the first versions
-    ((165, 4, 4), 3, "streamed"),
+    ((162, 2, 2), 3, "cluster"),     # n above every generic layout: a lane on several SMs
+    ((165, 4, 4), 3, "cluster"),
+    (TEAM85_FOV, 3, "cluster"),      # the first fov team past FromMemory: rows on chip
+    (TEAM96_FOV, 3, "cluster"),
+    (TEAM128_FOV, 2, "cluster"),
+    (TEAM256_FOV, 2, "cluster"),     # rows read from device memory
+    (TEAM128_CONN, 9, "cluster"),
+    (TEAM256_CONN, 3, "cluster"),
 ])
 def test_kernel_matches_twin_on_gpu(shape, B, took):
     """The kernel each shape takes against the twin on the card; same bar as
@@ -298,19 +309,19 @@ def test_kernel_matches_twin_on_gpu(shape, B, took):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant,shape,B", [("resident", FOV, 100), ("streamed", FOV, 100),
-                                             ("resident", SWARM_CONN, 64),
-                                             ("streamed", SWARM_FOV, 16),
-                                             ("generic", FOV, 100), ("generic", SWARM_CONN, 64),
+@pytest.mark.parametrize("variant,shape,B", [("generic", FOV, 100), ("generic", SWARM_CONN, 64),
                                              ("generic", SWARM_FOV, 16),   # A_d from memory
-                                             ("resident", RUN_SIM_CONN, 3),
-                                             ("streamed", TEAM24_FOV, 16)])
+                                             ("cluster", FOV, 100), ("cluster", SWARM_CONN, 64),
+                                             ("cluster", SWARM_FOV, 16),
+                                             ("cluster", RUN_SIM_CONN, 3),
+                                             ("cluster", TEAM64_FOV, 8)])
 def test_generic_kernels_take_the_fov_shapes_on_gpu(variant, shape, B):
-    """The kernels that take any shape, launched by name against the twin:
-    generic at shapes the wrapper gives to a compiled kernel (the fov shapes,
-    the 32-agent shapes; the 32-agent fov lane exceeds the registers and
-    reads A_d from device memory), and the first versions it replaced,
-    resident and streamed, which the wrapper no longer picks."""
+    """The kernels that take runtime shapes, launched by name against the
+    twin at shapes the wrapper gives to another kernel: generic at the fov
+    shapes and the 32-agent shapes (the 32-agent fov lane exceeds the
+    registers and reads A_d from device memory), cluster at those and at
+    run_sim's 3-robot team and the 64-agent fov team (generic's FromMemory
+    runs it through the wrapper)."""
     _need_gpu()
     arrays = [torch.from_numpy(a).cuda() for a in _inputs(B, seed=21, shape=shape)]
     before = structured_admm_iterations.launches
@@ -323,11 +334,12 @@ def test_generic_kernels_take_the_fov_shapes_on_gpu(variant, shape, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [FOV, CONN, CONN_LAMBDA2, SWARM_CONN, SWEEP_R10])
+@pytest.mark.parametrize("shape", [FOV, CONN, CONN_LAMBDA2, SWARM_CONN, SWEEP_R10, TEAM128_CONN])
 def test_nan_lane_leaves_its_block_untouched_on_gpu(shape):
     """The tiled kernel runs several lanes in one block, the folded and
-    generic kernels several blocks on one SM; a lane that goes NaN changes no
-    bit of any other lane."""
+    generic kernels several blocks on one SM, the cluster kernel a lane on
+    several SMs beside other lanes; a lane that goes NaN changes no bit of
+    any other lane."""
     _need_gpu()
     arrays = [torch.from_numpy(a).cuda() for a in _inputs(13, seed=23, shape=shape)]
     clean = structured_admm_iterations(*arrays, **KW)
@@ -342,26 +354,36 @@ def test_nan_lane_leaves_its_block_untouched_on_gpu(shape):
 
 @pytest.mark.cuda
 def test_every_team_takes_a_redesigned_kernel_on_gpu():
-    """Every fov team of 2 to 84 agents and every connectivity team of 2 to
-    89 robots (the first versions held them to 76 and 84) takes tiled,
-    folded or generic, never a first version."""
+    """Every fov team of 2 to 256 agents and every connectivity team of 2 to
+    256 robots takes tiled, folded, generic or cluster: every team to 84
+    agents and 89 robots one of the first three, the larger ones cluster."""
     _need_gpu()
     lib = fused_admm._lib()
-    shapes = [(35 + N, 119 + N, 12 * (N - 1)) for N in range(2, 85)] + \
-             [(35 + R, 125 + R, 2 * R - 2) for R in range(2, 90)]
-    took = {s: VARIANTS[lib.structured_admm_variant(*s)] for s in shapes}
-    assert {s: v for s, v in took.items() if v not in ("tiled", "folded", "generic")} == {}
+    fov = {A: fused_admm.fov_team_shape(A) for A in range(2, 257)}
+    conn = {R: (35 + R, 125 + R, 2 * R - 2) for R in range(2, 257)}
+    for teams, last_in_a_block in ((fov, 84), (conn, 89)):
+        codes = {size: lib.structured_admm_variant(*s) for size, s in teams.items()}
+        assert min(codes.values()) >= 0
+        took = {size: VARIANTS[c] for size, c in codes.items()}
+        assert {size: v for size, v in took.items()
+                if (v == "cluster") != (size > last_in_a_block)} == {}
 
 
 @pytest.mark.cuda
 def test_shape_beyond_every_kernel_raises_on_gpu():
-    """A lane whose float64 matrix (n = 200: 320 KB) exceeds a block's shared
-    memory in every kernel has no kernel: the wrapper raises before
-    launching, and the twin does not stand in."""
+    """A lane whose float64 matrix (n = 420: 1.41 MB) exceeds the shared
+    memory of a cluster of 8 blocks has no kernel: the wrapper raises before
+    launching, names the largest fov team a kernel holds (the next team
+    raises, that one does not), and the twin does not stand in."""
     _need_gpu()
-    arrays = [torch.from_numpy(a).cuda() for a in _inputs(1, seed=24, shape=(200, 10, 2))]
+    lib = fused_admm._lib()
+    A = fused_admm.largest_fov_team(lib)
+    assert lib.structured_admm_variant(*fused_admm.fov_team_shape(A)) == VARIANTS.index("cluster")
+    assert lib.structured_admm_variant(*fused_admm.fov_team_shape(A + 1)) == -1
+    arrays = [torch.from_numpy(a).cuda() for a in _inputs(1, seed=24, shape=(420, 10, 2))]
     before = structured_admm_iterations.launches
-    with pytest.raises(ValueError, match="no kernel holds the shape"):
+    with pytest.raises(ValueError, match=f"no kernel holds the shape.*largest fov team a kernel "
+                                         f"holds is {A} agents"):
         structured_admm_iterations(*arrays, **KW)
     assert structured_admm_iterations.launches == before
 
