@@ -18,18 +18,23 @@ sm_90a: an H100). It
    run_sim --controller connectivity on a 3-robot team (step 17), at every
    connectivity team of the sweep (35 + R, 125 + R, 2R - 2) on 15 R lanes
    (step 21; R = 10 also for a 150-iteration phase) and at the 24-agent fov
-   shapes (59, 143, 276) on 64 lanes, the 40- and 64-agent fov teams and a
-   40-robot connectivity team (rows read from device memory); generic also
-   launched by name at the fov flagship and the 32-agent shapes; cluster
-   (one lane a thread-block cluster) at the fov teams of 96, 128 (also for
-   the step's 550-iteration phase) and 256 agents, the connectivity teams
-   of 128 and 256 robots and two synthetic shapes past every one-block
-   layout (n = 162 and 165), and by name at the 64-agent fov team; a NaN
-   lane that must leave every other lane bitwise untouched at each shape
-   whose kernel shares a block or an SM between lanes (the inputs carry
-   inactive rows with rho = 1e-12 and bounds of +-1e20); then checks that
-   every fov team of 2 to 256 agents and every connectivity team of 2 to 256
-   robots takes one of the four kernels (none raises);
+   shapes (59, 143, 276) on 64 lanes; generic also launched by name at the
+   fov flagship and the 32-agent connectivity shapes; cluster (one lane a
+   thread-block cluster) at the fov teams of 40, 64, 96, 128 (also for
+   the step's 550-iteration phase), 160, 256 (rows and C streamed from
+   device memory; also a 256-lane chunk for 550 iterations) and 400 agents
+   (also for 550 iterations), the connectivity teams of 128, 256
+   (also for 550 iterations), 40 and 320 robots, two synthetic shapes past
+   every one-block layout (n = 162 and 165), and by name at the 32-agent fov
+   shapes; every kernel but tiled takes the lane's float64 C, which the
+   caller factors; a NaN lane that must leave every other lane bitwise
+   untouched at each shape whose kernel shares a block or an SM between
+   lanes, and at the cluster kernel's 256-robot, 256- and 400-agent lanes
+   (the inputs carry inactive rows with rho = 1e-12 and bounds of +-1e20);
+   then checks that every fov team of 2 to 512 agents and every
+   connectivity team of 2 to 512 robots takes one of the four kernels (none
+   raises), and that the tiled kernel takes exactly the shapes whose
+   operand is WK;
 4. times kernel and twin for each rho phase length of a control step (150 +
    50 cold, 32 + 32 warm) at 8192 fov and 32768 connectivity lanes, and at
    the lanes and phase lengths a launch of steps 7 and 7b gets: the folded
@@ -37,10 +42,12 @@ sm_90a: an H100). It
    (550 + 50 + 150 + 50), generic at the 3 lanes of one run_sim team (150
    + 50 + 150 + 50), at each sweep team's 15 R lanes (the same phases) and
    at the 24-agent step's 768 lanes, generic at the 40- and 64-agent steps'
-   launches and cluster at the 96- and 128-agent steps' (96 lanes; a lane
-   chunk of 256), at a lane chunk of a 256-agent step, at one run_sim team
-   of 128 and of 256 connectivity robots, and by name at the 64-agent step's
-   launch beside generic; prints each time beside its bound
+   launches and cluster at the 40-, 64-, 96-, 128- and 400-agent steps' (760,
+   512, 96 and 512 lanes; a lane chunk of 256), at a lane chunk of a
+   256-agent step and at one run_sim team of 128 and of 256 connectivity
+   robots; for every kernel that takes C also
+   the C builds of the step's phases (folded_c: cuBLAS and cuSOLVER); prints
+   each time beside its bound
    (the slowest of the float32 operations, the float64 operations and the
    bytes, from the shapes and the card's peaks; the operations are the
    fewest a known form of the loop needs, see bound()), and the
@@ -58,8 +65,8 @@ sm_90a: an H100). It
 7. runs one 32-agent control step of benchmarks/swarm.py's recipe (128
    scenarios x 32 agents = 4096 lanes) through the ADMM: connectivity (100
    iterations; the folded kernel, 4 launches, usable >= 0.99) and fov (600,
-   tail 200, neighbours masked to the sensing range; the folded kernel with
-   lane_chunk auto = 2 chunks, 8 launches): finite flyable lanes, time,
+   tail 200, neighbours masked to the sensing range; the folded kernel, one
+   lane chunk, 4 launches): finite flyable lanes, time,
    usable rate (>= 0.97) and peak device memory; the fov step also with a
    sync around each stage, under torch.profiler, and through the plain
    loop (usable rates within 0.01, success flags equal on 99 % of lanes);
@@ -71,14 +78,16 @@ sm_90a: an H100). It
    kernel, through the generic kernel (4 launches, asserted) and through the
    plain loop: usable rates within 0.01, success flags equal on 99 % of the
    lanes; then 19 rings of 40 agents (760 lanes) and 8 rings of 64 (512
-   lanes, one lane chunk) through the generic kernel's FromMemory layout (4
-   launches each, asserted; timed alone at those lanes: the generic_fov40
-   and generic_fov64 rows), one ring of 96 agents (96 lanes) and 4 rings
-   of 128 (512 lanes, two lane chunks of 256) through the cluster kernel
-   (4 and 8 launches, asserted), each also through the plain loop (usable
+   lanes, one lane chunk) through the cluster kernel (4 launches each,
+   asserted; timed alone at those lanes: the cluster_fov40 and cluster_fov64
+   rows), one ring of 96 agents (96 lanes), 4 rings of
+   128 (512 lanes, one lane chunk) and one ring of 400 (400 lanes, two lane
+   chunks of 256 and 144: rows and C streamed) through the cluster kernel (4,
+   4 and 8 launches, asserted), each also through the plain loop (usable
    rates within 0.01, flags equal on 99 % of the lanes), the wall time the
-   median of 3 calls, with the kernel's share, bound and twin beside it
-   (the 128-agent step also with a sync around each stage);
+   median of 3 calls, with the kernel's share, bound, twin and C builds
+   beside it and the peak device memory (the 128- and 400-agent steps also
+   with a sync around each stage);
 8. holds the f64 IPM on the card against the same solve on the host CPU
    (512 fov lanes: converged flags, z to 1e-3);
 9. drives the f32 Mehrotra IPM (IPM_F32_ENTRY, bench.py's default solver)
@@ -179,38 +188,44 @@ loop flies 10 steps (60 at first, then 20), the fov IPM times 3 calls, not
 call each, not three; the CBF-only loops fly 30 steps, not 60.
 
 Expected on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md; the wall times
-follow the host): every kernel variant within 3.4e-5 of its twin at 40
-iterations, the folded kernel within 6.2e-5 after 550; one fov control
-step's four phases at 8192 lanes 16.0-16.2 ms in the tiled kernel (bound
-1.17 ms, 7.3 % of it reached; twin 144-272 ms); connectivity at 32768 lanes
-19.5-19.7 ms (bound 2.45 ms, 12.6 %); the 4-robot step with the λ₂/CLF rows at
-32768 lanes 20.7 ms (bound 2.60 ms, 12.6 %); the folded kernel 3.33-3.45 ms for
-the 32-agent connectivity step's four launches at 4096 lanes (bound 0.33 ms,
-9.6-9.9 %) and 29.5-30.7 ms for one 2048-lane chunk of the 32-agent fov step
-(bound 3.43 ms, 11.2-11.6 %; its twin 627-787 ms); generic 0.55 ms for the four
-launches of one run_sim connectivity step on 3 lanes (1.38 µs, ~2740 clocks and
-3 barriers an iteration; bound 3.6e-4 ms: three blocks on a 132-SM card),
-0.55-0.70 ms at the sweep's teams on 15 R lanes, 11.4-12.0 ms at the 24-agent
-fov shapes on 768 lanes (bound 0.91 ms, 8 %); fov ADMM usable 0.7097 (plain
-route 0.7095), 150-415 ms
-per call; connectivity ADMM usable 0.9933, 26-31 ms; 32-agent connectivity
-usable 1.0000, 36-60 ms (f32 IPM: 1.0000, 423-625 ms); 32-agent fov usable
-0.9900 with the kernel and with the plain loop, 0.82-1.24 s, peak 6.35 GiB (f32 IPM: usable 1.0000, 494-903 ms,
-peak 1.39 GiB); 24-agent fov usable 0.9935 through the generic kernel and
-the plain loop, flags equal on every lane; λ₂ connectivity
-usable 0.5292 on bench.py's random teams
-(0.98 where the λ₂ row is on, 0.29 under the hard CLF rows; the JAX package
-gives the same flags), 47-66 ms a call; the f64 IPM on the card within
-2.5e-4 of the host CPU; fov f32 IPM usable 0.9974, 500-1400 ms per call at
-chunk 2048 and 220-430 ms at chunk 0, ~46k kernel launches per call;
-connectivity f32 IPM usable 1.0000, 1.9-4.2 s; HYBRID_PROD certified
-0.987-0.989, 0.74-1.53 s; closed loop 0.6-1.3 s per step, solver success
+follow the host): every kernel variant within 9.2e-5 of its twin (7.6e-5 /
+1.1e-4 after 550 iterations); one fov control step's four phases at 8192
+lanes 15.9-16.0 ms in the tiled kernel (bound 1.17 ms, 7.4 % of it reached;
+twin 186-272 ms); connectivity at 32768 lanes 19.3-19.4 ms (bound 2.45 ms,
+12.7 %); the λ₂/CLF step at 32768 lanes 20.5-20.6 ms (bound 2.60 ms); the
+folded kernel 2.9 ms for the 32-agent connectivity step's four launches at
+4096 lanes (bound 0.33 ms) and 53.9 ms for the 32-agent fov step's four
+launches at 4096 lanes (bound 6.86 ms, 12.7 %); generic 0.48 ms for one
+run_sim connectivity step on 3 lanes, 0.48-0.62 ms at the sweep's teams,
+9.1 ms at the 24-agent fov shapes on 768 lanes; cluster 46.5 / 74.7 ms at
+the 40- / 64-agent steps, 21.3 ms at the 96-agent ring, 193 ms at the
+128-agent step's 512 lanes (bound 7.06 ms, 3.7 %), 362 ms at a 256-lane
+chunk of 256 agents (rows and C streamed; twin 776 ms) and 941 ms at one of
+400 agents (twin 1540 ms), 16.0-17.7 / 84.2-84.8 ms at one team of
+128 / 256 connectivity robots; the C builds (folded_c) beside each, from
+0.47 ms (3 lanes) to 105 ms (256 lanes of 400 agents) a step's four phases;
+fov ADMM usable 0.7097 (plain route 0.7095), 150-415 ms per call;
+connectivity ADMM usable 0.9933, 26-31 ms; 32-agent connectivity usable
+1.0000, 11-12 ms (f32 IPM: 1.0000, 290-450 ms); 32-agent fov usable 0.9900
+with the kernel and with the plain loop, 128-133 ms, peak 2.05 GiB (f32 IPM:
+usable 1.0000, 436-520 ms, peak 1.39 GiB); 24-agent fov usable 0.9935
+through the generic kernel and the plain loop, flags equal on every lane;
+40 / 64 / 96 / 128-agent steps 92-119 / 126-137 / 88-111 / 274-293 ms
+(usable 0.9987 / 1.0000 / 1.0000 / 1.0000, flags equal on every lane, 128
+agents peak 2.27 GiB); the 400-agent ring 1.76-1.93 s (usable 1.0000, flags
+equal on all 400 lanes, peak 10.27 GiB); λ₂ connectivity usable 0.5292 on bench.py's random
+teams (0.98 where the λ₂ row is on, 0.29 under the hard CLF rows; the JAX
+package gives the same flags), 47-68 ms a call; the f64 IPM on the card
+within 2.5e-4 of the host CPU; fov f32 IPM usable 0.9974, 500-1400 ms per
+call at chunk 2048 and 220-430 ms at chunk 0, ~46k kernel launches per
+call; connectivity f32 IPM usable 1.0000, 1.9-4.2 s; HYBRID_PROD certified
+0.987-0.989, 0.74-1.55 s; closed loop 0.6-1.3 s per step, solver success
 0.99, instance_success 0.0 (the JAX package flies these random instances to
-the same places); the dense ADMM ~10 250 launches a solve, 240-245 ms on the
+the same places); the dense ADMM ~10 250 launches a solve, 240-390 ms on the
 fov flagship QPs (converged 0.17, primal residual <= 0.05: 0.47) and 116-220
 ms on the cbf-fov QPs (converged 0.42); the dense IMPC step usable 0.726,
 0.54-0.62 s; CBF-only steps at 32768 lanes 133-256 ms (223-336 with the
-particle filter, peak 4.24 GiB), solver success 0.06 (cbf-fov) and 0.62
+particle filter, peak 4.24 GiB), solver success 0.06-0.13 (cbf-fov) and 0.53-0.62
 (cbf-connectivity) on the 8-robot rings, as in the JAX package;
 BezierMPCSim 179-227 ms a step, all scenarios succeed; the command line
 flies all eight variants to success on 3r/rotate, 11-52 ms per replan step
@@ -222,24 +237,17 @@ connectivity +polish usable 0.9998 (raw 0.9929), certified 0.9993, 0.7-2.2 s
 MAGMA's LU row swaps the largest kernel; the polish on the card equal to the
 host's (flags on every lane, z within 3e-12); certified lanes within 1e-3 of
 the oracle but connectivity lane 120 (1.247e-3, the JAX package 1.249e-3);
-the sweep's connectivity cells 0.5-1.7 s for 60 steps (generic 0.55-0.70 ms
+the sweep's connectivity cells 0.5-1.7 s for 60 steps (generic 0.48-0.62 ms
 a step's four launches at 15 R lanes), all seeds succeed, fov cells 13-31 s;
-generic 117.6 ms at the 40-agent fov step's 760 lanes (bound 1.71 ms, 1.45 %)
-and 180.5-182.7 ms at the 64-agent step's 512 (bound 2.27 ms, 1.26 %; cluster by
-name 72.9 ms); cluster 106.8-108.7 ms at a 256-lane chunk of the 128-agent step (bound
-3.53 ms, 3.2-3.3 %), 21.6-22.2 ms at the 96-agent ring (bound 0.81 ms), 1.71 s at a
-chunk of 256 agents (rows from device memory, slower than its twin's 1.54 s),
-16.3-16.8 / 109.5-110.9 ms at one team of 128 / 256 connectivity robots; the
-128-agent step 2.1-4.1 s (usable 1.0000, flags equal to the plain loop's on every
-lane, peak 12.3 GiB), the 96-agent step 0.31-0.64 s (usable 1.0000); a resumed checkpointed run equal to the uninterrupted one
-(max |Δ| 0), sharded_rollout on one card bitwise sim.rollout; the deploy graph's
-replans 273-304 ms median, 352-381 ms p95 (21 793 launches a replan: over 100 ms
-budget), both robots at their goals; the audit at 8192 lanes usable 0.9974, 21
-failed lanes, all max-iter at the oracle.
+a resumed checkpointed run equal to the uninterrupted one (max |Δ| 0),
+sharded_rollout on one card bitwise sim.rollout; the deploy graph's replans
+258-365 ms median (21 793 launches a replan: over the 100 ms budget), both
+robots at their goals; the audit at 8192 lanes usable 0.9974, 21 failed
+lanes, all max-iter at the oracle.
 5 to 11 minutes in all (353-432 s in the runs with the 32-agent and team
-phases above, 343-573 s with the slice-6 phases, 541 s with the generic
-kernel's rows, 494-510 s with the last modules' phases, 616 s with the
-cluster kernel's before the CBF-only loops were cut to 30 steps, 364 s after);
+phases above, 343-573 s with the slice-6 phases, 494-510 s with the last
+modules' phases, 616 s with the cluster kernel's before the CBF-only loops
+were cut to 30 steps, 364 s after; 400-500 s of phases with slice 10's);
 every phase logs its wall seconds.
 """
 
@@ -293,26 +301,34 @@ SWARM_FOV_SHAPES = dict(n=67, m_s=151, m_d=372)   # 32-agent fov: 36 + 31 slack 
 # shapes without a compiled kernel: the generic kernel's
 RUN_SIM_CONN_SHAPES = dict(n=38, m_s=128, m_d=4)  # run_sim connectivity, 3 robots
 TEAM24_FOV_SHAPES = dict(n=59, m_s=143, m_d=276)  # 24-agent fov
-# fov teams of 40 and 64 agents and a 40-robot connectivity team: generic's
-# FromMemory layout. The fov steps run 19 rings of 40 (760 lanes, one lane
-# chunk) and 8 rings of 64 (512 lanes: the auto lane_chunk of m_d = 756)
+# fov teams of 40 and 64 agents and a 40-robot connectivity team: past the
+# generic kernel's registers, the cluster kernel's (2 and 4 blocks a lane, rows
+# on chip). The fov steps run 19 rings of 40 (760 lanes) and 8 rings of 64
+# (512 lanes), one lane chunk each
 TEAM40_FOV_SHAPES = dict(n=75, m_s=159, m_d=468)
 TEAM64_FOV_SHAPES = dict(n=99, m_s=183, m_d=756)
 # lanes larger than one SM: the cluster kernel's. fov teams of 96 and 128
-# agents (the steps: one ring of 96, one lane chunk; 4 rings of 128 = 512
-# lanes, two lane chunks of 256) and 256 agents (rows read from device
-# memory; alone, at one lane chunk of 256), the sweep's and run_sim's
+# agents (the steps: one ring of 96; 4 rings of 128 = 512 lanes, one lane
+# chunk), 256 agents (rows and C streamed from device memory; alone, at one
+# lane chunk of 256) and 400 agents (the step: one
+# ring of 400, two lane chunks of 256 and 144), the sweep's and run_sim's
 # connectivity teams of 128 and 256 robots (alone, one run_sim team's lanes)
+# and of 320 (rows and C streamed; checked only)
 TEAM96_FOV_SHAPES = dict(zip("n m_s m_d".split(), fused_admm.fov_team_shape(96)))
 TEAM128_FOV_SHAPES = dict(zip("n m_s m_d".split(), fused_admm.fov_team_shape(128)))
 TEAM256_FOV_SHAPES = dict(zip("n m_s m_d".split(), fused_admm.fov_team_shape(256)))
+TEAM400_FOV_SHAPES = dict(zip("n m_s m_d".split(), fused_admm.fov_team_shape(400)))
 TEAM128_CONN_SHAPES = dict(n=163, m_s=253, m_d=254)
 TEAM256_CONN_SHAPES = dict(n=291, m_s=381, m_d=510)
-TEAM_FOV_RINGS = {40: 19, 64: 8, 96: 1, 128: 4}
-CHUNK = 256                                  # the auto lane_chunk of m_d >= 1024
+TEAM320_CONN_SHAPES = dict(n=355, m_s=445, m_d=638)
+TEAM_FOV_RINGS = {40: 19, 64: 8, 96: 1, 128: 4, 256: 1, 400: 1}
+CHUNK = 256                                  # the auto lane_chunk of the 400-agent lane
 #: rows timed alone, at shapes no phase of the main path launches (the log and
 #: PERF.md keep them; the kernels line lists what the main path ran)
-ALONE = ("cluster_fov64", "cluster_fov256")
+ALONE = ("cluster_fov256",)
+#: teams past every on-chip layout: the largest fov team and connectivity team
+#: every kernel must hold (coverage)
+LARGEST_TEAM = 512
 TEAM40_CONN_SHAPES = dict(n=75, m_s=165, m_d=78)
 LAMBDA2_SHAPES = dict(n=36, m_s=126, m_d=14)      # 4-robot connectivity with the λ₂/CLF rows
 BASE_CONFIG = "configs/base_config.json"
@@ -327,8 +343,9 @@ SOURCES = {"tiled": "mpc_cbf_torch/csrc/structured_admm_tiled.cu",
            "cluster": "mpc_cbf_torch/csrc/structured_admm_cluster.cu"}
 #: barriers of one iteration as the sources write them (generic:
 #: structured_admm_generic.cu; folded: structured_admm_folded.cu; cluster:
-#: structured_admm_cluster.cu, three block-wide and two cluster-wide): a count
-#: read from the code, printed beside the measured times in the log only
+#: structured_admm_cluster.cu's on-chip layout, three block-wide and two
+#: cluster-wide; its streamed layout has one block-wide fewer): a count read
+#: from the code, printed beside the measured times in the log only
 BARRIERS = {"generic": 3, "folded": 5, "cluster": 5}
 # the card's peaks, NVIDIA's H100 SXM data sheet at 700 W: float32 outside the
 # tensor cores, float64 on the tensor cores (the tiled kernel runs their
@@ -346,26 +363,42 @@ def reset_counts() -> None:
 
 def bound(B: int, n: int, m_s: int, m_d: int, phases) -> tuple:
     """(ms, "bytes" or "operations"): the least time the card could take for
-    one launch per entry of ``phases`` (iterations each) on B lanes. The
-    operations are the fewest a known form of the loop needs, the smaller of
-    two counts. As written (the TPU kernel's form): per lane and iteration
+    one launch per entry of ``phases`` (iterations each) on B lanes, for the
+    operand the shape takes (fused_admm.takes_wk). The operations are the
+    fewest a known form of the loop needs. The Woodbury form (the tiled
+    kernel's shapes; the TPU kernel's form): per lane and iteration
     [A_s; A_d]'r, A_d S and [A_s; A_d] xt in float32, Ms_inv RHS and WK t in
-    float64. Folded (structured_admm_folded.cu): xt = C RHS with the lane's
-    C = (I - WK A_d) Ms_inv, so an iteration keeps [A_s; A_d]'r and
-    [A_s; A_d] xt in float32 (2 m n multiply-adds) and C RHS in float64
-    (n^2), and a launch pays n m_d n + n^3 float64 multiply-adds for C.
-    float32 and float64 run at their own peaks on pipes of their own, so the
-    slower of the two sets the time of a form; every launch reads each input
-    once and writes each output once."""
+    float64; or, the smaller count, folded into C = (I - WK A_d) Ms_inv inside
+    the launch (n m_d n + n^3 float64 multiply-adds a lane), which leaves
+    [A_s; A_d]'r and [A_s; A_d] xt in float32 (2 m n) and C RHS in float64
+    (n^2). The C form (every other shape): the caller factors C, so a launch
+    does only the latter, and reads a float64 C [n, n] a lane in place of WK
+    and no Ms_inv. float32 and float64 run at their own peaks on pipes of
+    their own, so the slower of the two sets the time of a form; every launch
+    reads each input once and writes each output once."""
     m, its, launches = m_s + m_d, sum(phases), len(phases)
-    written = max(its * 2 * (2 * m * n + m_d * n) / PEAK_F32,
-                  its * 2 * (n * n + n * m_d) / PEAK_F64)
     folded = max(its * 2 * 2 * m * n / PEAK_F32,
                  (its * 2 * n * n + launches * 2 * (n * m_d * n + n ** 3)) / PEAK_F64)
-    ops = B * min(written, folded)
-    per_lane = 4 * (2 * n + 4 * m_s + 5 * m_d + 2 * n * m_d) + 4 * (n + 2 * m)
-    moved = len(phases) * (B * per_lane + 4 * (n * n + m_s * n + m_s)) / PEAK_BYTES
+    per_lane = 4 * (2 * n + 4 * m_s + 5 * m_d + n * m_d) + 4 * (n + 2 * m)
+    shared = 4 * (m_s * n + m_s)
+    if fused_admm.takes_wk(n, m_s, m_d):
+        written = max(its * 2 * (2 * m * n + m_d * n) / PEAK_F32,
+                      its * 2 * (n * n + n * m_d) / PEAK_F64)
+        ops = B * min(written, folded)
+        per_lane, shared = per_lane + 4 * n * m_d, shared + 4 * n * n
+    else:
+        ops = B * max(its * 2 * 2 * m * n / PEAK_F32, its * 2 * n * n / PEAK_F64)
+        per_lane += 8 * n * n
+    moved = launches * (B * per_lane + shared) / PEAK_BYTES
     return max(ops, moved) * 1e3, "operations" if ops >= moved else "bytes"
+
+
+def launch_lanes(shapes: dict, batch: int) -> int:
+    """The lanes a launch of one control step on ``batch`` lanes of these
+    shapes gets: StructuredQPOperator's auto lane_chunk (the first chunk)."""
+    op = structured_mod.StructuredQPOperator.__new__(structured_mod.StructuredQPOperator)
+    op.n, op.m_d, op.cfg = shapes["n"], shapes["m_d"], StructuredConfig()
+    return op._lane_chunk(batch) or batch
 
 
 def log(msg: str) -> None:
@@ -423,23 +456,33 @@ def build() -> None:
             log(f"  {line.strip()}")
 
 
-def phase_inputs(B: int, seed: int, shapes=FOV_SHAPES):
+def phase_inputs(B: int, seed: int, shapes=FOV_SHAPES, operand: str | None = None):
     """Seeded inputs of one rho phase on the card (a fresh list of the same
-    tensors for the same arguments). Lanes of more than 300 dynamic rows
-    repeat 64 distinct lanes, of more than 1000 rows 8 and of more than 2000
-    rows 2: the host's inverses of [B, m_d, m_d] would otherwise take a minute
-    (the kernels' work does not depend on the values)."""
-    return list(_phase_inputs(B, seed, tuple(shapes.items())))
+    tensors for the same arguments), with the operand ``operand`` ("wk", "c";
+    None: the shape's). Lanes of more than 300 dynamic rows repeat 64 distinct
+    lanes, of more than 1000 rows 8 and of more than 2000 rows 2: the host's
+    inverses would otherwise take a minute (the kernels' work does not depend
+    on the values)."""
+    return list(_phase_inputs(B, seed, tuple(shapes.items()), operand))
 
 
 @functools.lru_cache(maxsize=None)
-def _phase_inputs(B: int, seed: int, shapes: tuple) -> tuple:
+def _phase_inputs(B: int, seed: int, shapes: tuple, operand: str | None) -> tuple:
     shapes = dict(shapes)
     m_d = shapes["m_d"]
     distinct = 2 if m_d > 2000 else 8 if m_d > 1000 else 64 if m_d > 300 else None
     arrays = fused_admm.random_phase_inputs(np.random.default_rng(seed), B, **shapes,
-                                            distinct=distinct)
+                                            distinct=distinct, operand=operand)
     return tuple(torch.from_numpy(a).to(DEV) for a in arrays)
+
+
+def by_name(variant: str, shapes: dict):
+    """(operand, plain twin) of a kernel launched by name at these shapes: WK
+    and the Woodbury twin for tiled, else C and the C form's loop (the twin of
+    the shape, but at the tiled kernel's shapes)."""
+    if variant == "tiled":
+        return "wk", fused_admm.structured_admm_iterations_ref
+    return "c", fused_admm.folded_iterations_ref
 
 
 def max_dev(out_k, out_t, what: str) -> float:
@@ -470,8 +513,7 @@ def check_kernel(iters: int = 40) -> dict:
         ("generic", "fov through the generic kernel", FOV_SHAPES, 100, "generic"),
         ("generic", "32-agent connectivity through the generic kernel", SWARM_CONN_SHAPES, 64,
          "generic"),
-        ("generic", "32-agent fov through the generic kernel (A_d from memory)",
-         SWARM_FOV_SHAPES, 64, "generic"),
+        ("cluster", "32-agent fov through the cluster kernel", SWARM_FOV_SHAPES, 64, "cluster"),
         ("tiled_lambda2", "connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES, 1001, None),
         ("tiled_lambda2", "connectivity with the λ₂/CLF rows, fewer lanes than a block",
          LAMBDA2_SHAPES, 3, None),
@@ -480,23 +522,31 @@ def check_kernel(iters: int = 40) -> dict:
         ("generic_sweep_r10", "sweep connectivity team of 10, a cold phase",
          sweep_shapes(10), SWEEP_SEEDS * 10, None, max(RUN_SIM_PHASES)),
         ("generic_team24", "24-agent fov", TEAM24_FOV_SHAPES, 64, None),
-        ("generic_fov40", "40-agent fov (rows from device memory)", TEAM40_FOV_SHAPES, 64, None),
-        ("generic_fov64", "64-agent fov (rows from device memory)", TEAM64_FOV_SHAPES, 16, None),
-        ("generic", "40-robot connectivity (rows from device memory)", TEAM40_CONN_SHAPES, 64,
-         None),
+        ("cluster_fov40", "40-agent fov", TEAM40_FOV_SHAPES, 64, None),
+        ("cluster_fov64", "64-agent fov", TEAM64_FOV_SHAPES, 16, None),
+        ("cluster", "40-robot connectivity", TEAM40_CONN_SHAPES, 64, None),
         # lanes larger than one SM: the cluster kernel (rows on chip but at 256 fov agents)
         ("cluster_fov96", "96-agent fov", TEAM96_FOV_SHAPES, 4, None),
         ("cluster_fov128", "128-agent fov", TEAM128_FOV_SHAPES, 4, None),
         ("cluster_fov128", "128-agent fov, the step's longest phase", TEAM128_FOV_SHAPES, 4, None,
          max(SWARM_PHASES["fov"])),
-        ("cluster_fov256", "256-agent fov (rows from device memory)", TEAM256_FOV_SHAPES, 2, None),
+        # the streamed layout: the 160-, 256- (also a lane chunk) and 400-agent fov lanes, also
+        # for the step's longest phase
+        ("cluster", "160-agent fov (rows and C streamed)",
+         dict(zip("n m_s m_d".split(), fused_admm.fov_team_shape(160))), 2, None),
+        ("cluster_fov256", "256-agent fov (rows streamed, C too)", TEAM256_FOV_SHAPES, 2, None),
+        ("cluster_fov256", "256-agent fov (rows and C streamed), a lane chunk, the longest phase",
+         TEAM256_FOV_SHAPES, CHUNK, None, max(SWARM_PHASES["fov"])),
+        ("cluster_fov400", "400-agent fov (rows and C streamed)", TEAM400_FOV_SHAPES, 4, None),
+        ("cluster_fov400", "400-agent fov (rows and C streamed), the step's longest phase",
+         TEAM400_FOV_SHAPES, 4, None, max(SWARM_PHASES["fov"])),
         ("cluster_conn128", "128-robot connectivity", TEAM128_CONN_SHAPES, 16, None),
         ("cluster_conn256", "256-robot connectivity", TEAM256_CONN_SHAPES, 8, None),
+        ("cluster_conn256", "256-robot connectivity, the step's longest phase",
+         TEAM256_CONN_SHAPES, 8, None, max(SWARM_PHASES["fov"])),
+        ("cluster", "320-robot connectivity (rows and C streamed)", TEAM320_CONN_SHAPES, 4, None),
         ("cluster", "n = 162, past every one-block layout", dict(n=162, m_s=2, m_d=2), 3, None),
         ("cluster", "n = 165, past every one-block layout", dict(n=165, m_s=4, m_d=4), 3, None),
-        # by name at a shape generic's FromMemory takes, for the record
-        ("cluster_fov64", "64-agent fov through the cluster kernel", TEAM64_FOV_SHAPES, 16,
-         "cluster"),
         # the longest phase of the 32-agent fov step: two float32 loops after 550 iterations
         ("folded_swarm_fov", "32-agent fov, the step's longest phase", SWARM_FOV_SHAPES, 64, None,
          max(SWARM_PHASES["fov"])),
@@ -504,17 +554,20 @@ def check_kernel(iters: int = 40) -> dict:
     errs = {}
     for row, what, shapes, B, variant, *longer in cases:
         n_it = longer[0] if longer else iters
-        args = phase_inputs(B, seed=0, shapes=shapes)
         reset_counts()
         if variant is None:                   # the kernel of the shape, through the wrapper
+            args, twin = phase_inputs(B, seed=0, shapes=shapes), \
+                fused_admm.structured_admm_iterations_ref
             out_k = KERNEL(*args, iters=n_it, **KW)
             took = [v for v, c in KERNEL.launches_by_variant.items() if c]
             if took != [row.split("_")[0]]:
                 raise AssertionError(f"{what}: launched {took}, expected the {row} kernel")
         else:                                 # a kernel launched by name
+            operand, twin = by_name(variant, shapes)
+            args = phase_inputs(B, seed=0, shapes=shapes, operand=operand)
             out_k = fused_admm.launch_variant(fused_admm._lib(), variant, args, iters=n_it, **KW)
             took = [variant]
-        out_t = fused_admm.structured_admm_iterations_ref(*args, iters=n_it, **KW)
+        out_t = twin(*args, iters=n_it, **KW)
         torch.cuda.synchronize()
         err = max_dev(out_k, out_t, what)
         errs[row] = max(errs.get(row, 0.0), err)
@@ -526,7 +579,11 @@ def check_kernel(iters: int = 40) -> dict:
                                    ("connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES, 10),
                                    ("32-agent connectivity", SWARM_CONN_SHAPES, 10),
                                    ("sweep connectivity team of 10", sweep_shapes(10), 10),
-                                   ("128-robot connectivity", TEAM128_CONN_SHAPES, 10)):
+                                   ("128-robot connectivity", TEAM128_CONN_SHAPES, 10),
+                                   ("256-robot connectivity", TEAM256_CONN_SHAPES, 10),
+                                   ("256-agent fov (rows streamed)", TEAM256_FOV_SHAPES, 10),
+                                   ("400-agent fov (rows and C streamed)", TEAM400_FOV_SHAPES,
+                                    10)):
         args = phase_inputs(37, seed=2, shapes=shapes)
         clean = KERNEL(*args, iters=iters, **KW)
         args[3] = args[3].clone()
@@ -543,22 +600,30 @@ def check_kernel(iters: int = 40) -> dict:
 
 
 def coverage() -> None:
-    """Every fov team of 2 to 256 agents ((35 + A, 119 + A, 12 (A - 1)),
-    benchmarks/swarm.py's rings) and every connectivity team of 2 to 256
+    """Every fov team of 2 to 512 agents ((35 + A, 119 + A, 12 (A - 1)),
+    benchmarks/swarm.py's rings) and every connectivity team of 2 to 512
     robots ((35 + R, 125 + R, 2R - 2), apps/sweep.py's and run_sim's) takes
-    one of the four kernels: structured_admm_variant returns no kNone."""
+    one of the four kernels: structured_admm_variant returns no kNone; and
+    the tiled kernel takes exactly the shapes whose operand is WK
+    (fused_admm.TILED_SHAPES, the Python side's choice of form)."""
     lib = fused_admm._lib()
-    teams = {f"fov {A}": fused_admm.fov_team_shape(A) for A in range(2, 257)}
-    teams.update({f"connectivity {R}": (35 + R, 125 + R, 2 * R - 2) for R in range(2, 257)})
+    sizes = range(2, LARGEST_TEAM + 1)
+    teams = {f"fov {A}": fused_admm.fov_team_shape(A) for A in sizes}
+    teams.update({f"connectivity {R}": (35 + R, 125 + R, 2 * R - 2) for R in sizes})
+    teams.update({f"tiled {s}": s for s in fused_admm.TILED_SHAPES})
     took = {name: lib.structured_admm_variant(*shape) for name, shape in teams.items()}
     missing = [name for name, code in took.items() if code < 0]
     if missing:
         raise AssertionError(f"no kernel holds the teams {missing}")
+    wrong = [name for name, code in took.items()
+             if (fused_admm.VARIANTS[code] == "tiled") != fused_admm.takes_wk(*teams[name])]
+    if wrong:
+        raise AssertionError(f"the tiled kernel and the WK operand disagree at {wrong}")
     counts = {v: sum(fused_admm.VARIANTS[c] == v for c in took.values())
               for v in fused_admm.VARIANTS}
-    log(f"coverage: all {len(teams)} teams (fov 2-256 agents, connectivity 2-256 robots) take a "
-        f"kernel: {counts}; the largest fov team a kernel holds: "
-        f"{fused_admm.largest_fov_team(lib)} agents")
+    log(f"coverage: all {len(teams)} shapes (fov 2-{LARGEST_TEAM} agents, connectivity "
+        f"2-{LARGEST_TEAM} robots, the 3 tiled shapes) take a kernel: {counts}; the tiled "
+        f"kernel exactly the WK shapes {fused_admm.TILED_SHAPES}")
 
 
 def bound_text(b_ms: float, k_ms: float) -> str:
@@ -595,9 +660,15 @@ def time_phases(what: str, shapes, B: int, phases=PHASES, variant: str | None = 
                 reps: int = 5) -> dict:
     """Device ms of the kernel (the variant the shape takes, or ``variant``
     launched by name) and the twin per rho phase length at B lanes, beside
-    the bound. Returns the sums over ``phases``: the launches one control
-    step makes on B lanes."""
-    args = phase_inputs(B, seed=1, shapes=shapes)
+    the bound; for a C-form kernel also the C build of one phase
+    (StructuredQPOperator.folded_c: the float64 product, its Cholesky and two
+    triangular solves, library calls) on the same lanes. Returns the sums
+    over ``phases``: the launches one control step makes on B lanes."""
+    if variant is None:
+        operand, twin = None, fused_admm.structured_admm_iterations_ref
+    else:
+        operand, twin = by_name(variant, shapes)
+    args = phase_inputs(B, seed=1, shapes=shapes, operand=operand)
     lib = fused_admm._lib()
     launch = (lambda kw: KERNEL(*args, **kw)) if variant is None else \
         (lambda kw: fused_admm.launch_variant(lib, variant, args, **kw))
@@ -605,8 +676,7 @@ def time_phases(what: str, shapes, B: int, phases=PHASES, variant: str | None = 
     for iters in sorted(set(phases)):
         kw = dict(iters=iters, **KW)
         k_ms = cuda_ms(lambda: launch(kw), reps=reps)
-        t_ms = cuda_ms(lambda: fused_admm.structured_admm_iterations_ref(*args, **kw),
-                       reps=min(reps, 2))
+        t_ms = cuda_ms(lambda: twin(*args, **kw), reps=min(reps, 2))
         b_ms, _ = bound(B, **shapes, phases=(iters,))
         per[iters] = (k_ms, t_ms)
         log(f"{what}, phase of {iters:3d} iterations at B={B}: kernel {k_ms:.3f} ms, "
@@ -616,12 +686,20 @@ def time_phases(what: str, shapes, B: int, phases=PHASES, variant: str | None = 
     mhz = sm_clock_mhz()                      # read right after the window
     its = sum(phases)
     variant = variant or kernel_of_shape(shapes)
+    c_ms = None
+    if args[10].dtype == torch.float64:       # the C form: one build a phase, as _solve makes it
+        M_s = torch.linalg.inv(args[0].double())
+        c_ms = len(phases) * cuda_ms(
+            lambda: structured_mod.StructuredQPOperator.folded_c(M_s, args[6], args[9]), reps=2)
     out = dict(ms=k_sum, plain_ms=t_sum, bound_ms=b_ms, bound_by=by, lanes=B, phases=list(phases),
-               us_per_iter=k_sum * 1e3 / its, clocks_per_iter=k_sum * 1e3 / its * mhz)
+               us_per_iter=k_sum * 1e3 / its, clocks_per_iter=k_sum * 1e3 / its * mhz,
+               c_build_ms=c_ms)
     msg = (f"{what}, {len(phases)} phases {phases} at B={B}: kernel {k_sum:.3f} ms, "
            f"{bound_text(b_ms, k_sum)}, by {by} (peaks {PEAK_F32 / 1e12:.0f} / "
            f"{PEAK_F64 / 1e12:.0f} TFLOP/s float32 / float64, {PEAK_BYTES / 1e12:.2f} TB/s); "
-           f"twin {t_sum:.3f} ms; an iteration {per_iter_text(k_sum, its, mhz, variant)}")
+           f"twin {t_sum:.3f} ms; an iteration {per_iter_text(k_sum, its, mhz, variant)}"
+           + (f"; the C builds of the {len(phases)} phases (folded_c) {c_ms:.3f} ms"
+              if c_ms is not None else ""))
     log(msg)
     return out
 
@@ -842,9 +920,11 @@ def swarm_path(mode: str, ctrl, inputs, variant: str, timed: dict, usable_bar: f
         f"{usable:.4f}, flyable {float(res.flyable.float().mean()):.4f}, "
         + (spread(times) if calls > 1 else f"{dt * 1e3:.2f} ms")
         + f", {batch * 2 / dt:.1f} solves/s, peak device memory {peak:.3f} GiB; the kernel "
-        f"alone {timed['ms'] * chunks:.3f} ms of it ({chunks} x {timed['ms']:.3f} at "
-        f"{chunk} lanes; bound {timed['bound_ms'] * chunks:.3f} ms, plain twin "
-        f"{timed['plain_ms'] * chunks:.3f} ms)")
+        f"alone about {timed['ms'] * batch / chunk:.3f} ms of it ({batch / chunk:.4g} x "
+        f"{timed['ms']:.3f} at {chunk} lanes; bound {timed['bound_ms'] * batch / chunk:.3f} ms, "
+        f"plain twin {timed['plain_ms'] * batch / chunk:.3f} ms"
+        + (f", the C builds {timed['c_build_ms'] * batch / chunk:.3f} ms"
+           if timed.get("c_build_ms") else "") + ")")
     if usable < usable_bar:
         raise AssertionError(f"{what} ADMM usable rate {usable:.4f} < {usable_bar}")
     if split:
@@ -1936,11 +2016,12 @@ def main() -> int:
             "tiled_fov": time_phases("fov", FOV_SHAPES, 8192),
             "tiled_connectivity": time_phases("connectivity", CONN_SHAPES, 32768),
             # at the lanes and phase lengths the 32-agent steps below give a launch:
-            # all 4096 lanes, and one lane chunk of 2048
+            # all 4096 lanes (the fov step's auto lane_chunk holds them all)
             "folded_swarm_connectivity": time_phases(
                 "32-agent connectivity", SWARM_CONN_SHAPES, 4096,
                 phases=SWARM_PHASES["connectivity"]),
-            "folded_swarm_fov": time_phases("32-agent fov", SWARM_FOV_SHAPES, 2048,
+            "folded_swarm_fov": time_phases("32-agent fov", SWARM_FOV_SHAPES,
+                                            launch_lanes(SWARM_FOV_SHAPES, 4096),
                                             phases=SWARM_PHASES["fov"], reps=3),
             # the 4-robot connectivity step with the λ₂/CLF rows
             "tiled_lambda2": time_phases("connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES,
@@ -1951,23 +2032,26 @@ def main() -> int:
                                    phases=RUN_SIM_PHASES),
             "generic_team24": time_phases("24-agent fov", TEAM24_FOV_SHAPES, 768,
                                           phases=SWARM_PHASES["fov"], reps=1),
-            # the 40- and 64-agent fov steps below (FromMemory): the lanes of a launch
-            **{f"generic_fov{A}": time_phases(
+            # the 40- and 64-agent fov steps below: the lanes of a launch
+            **{f"cluster_fov{A}": time_phases(
                 f"{A}-agent fov", shapes, TEAM_FOV_RINGS[A] * A, phases=SWARM_PHASES["fov"],
                 reps=1)
                for A, shapes in ((40, TEAM40_FOV_SHAPES), (64, TEAM64_FOV_SHAPES))},
-            # the cluster kernel by name at the 64-agent step's launch, beside FromMemory
-            "cluster_fov64": time_phases("64-agent fov, the cluster kernel by name",
-                                         TEAM64_FOV_SHAPES, TEAM_FOV_RINGS[64] * 64,
-                                         phases=SWARM_PHASES["fov"], variant="cluster", reps=1),
-            # the 96- and 128-agent fov steps below: one ring of 96, a lane chunk of 256
+            # the 96-, 128- and 400-agent fov steps below: one ring of 96, 4 rings of 128
+            # (one lane chunk of 512), a lane chunk of 256 of one ring of 400 (rows and C
+            # streamed)
             "cluster_fov96": time_phases("96-agent fov", TEAM96_FOV_SHAPES, 96,
                                          phases=SWARM_PHASES["fov"], reps=3),
-            "cluster_fov128": time_phases("128-agent fov", TEAM128_FOV_SHAPES, CHUNK,
+            "cluster_fov128": time_phases("128-agent fov", TEAM128_FOV_SHAPES,
+                                          launch_lanes(TEAM128_FOV_SHAPES, 512),
                                           phases=SWARM_PHASES["fov"], reps=3),
-            # alone: a lane chunk of a 256-agent fov step, one run_sim team of 128 and of 256
-            "cluster_fov256": time_phases("256-agent fov", TEAM256_FOV_SHAPES, CHUNK,
+            "cluster_fov400": time_phases("400-agent fov (rows and C streamed)",
+                                          TEAM400_FOV_SHAPES, launch_lanes(TEAM400_FOV_SHAPES, 400),
                                           phases=SWARM_PHASES["fov"], reps=1),
+            # alone: a lane chunk of a 256-agent fov step (rows streamed), one run_sim team
+            # of 128 and of 256
+            "cluster_fov256": time_phases("256-agent fov (rows streamed)", TEAM256_FOV_SHAPES,
+                                          CHUNK, phases=SWARM_PHASES["fov"], reps=1),
             **{f"cluster_conn{R}": time_phases(
                 f"{R}-robot connectivity", shapes, R, phases=RUN_SIM_PHASES, reps=3)
                for R, shapes in ((128, TEAM128_CONN_SHAPES), (256, TEAM256_CONN_SHAPES))},
@@ -1995,10 +2079,11 @@ def main() -> int:
         plain=True)
     del swarm, team24
     torch.cuda.empty_cache()
-    for A, shapes, variant in ((40, TEAM40_FOV_SHAPES, "generic"),
-                               (64, TEAM64_FOV_SHAPES, "generic"),
+    for A, shapes, variant in ((40, TEAM40_FOV_SHAPES, "cluster"),
+                               (64, TEAM64_FOV_SHAPES, "cluster"),
                                (96, TEAM96_FOV_SHAPES, "cluster"),
-                               (128, TEAM128_FOV_SHAPES, "cluster")):
+                               (128, TEAM128_FOV_SHAPES, "cluster"),
+                               (400, TEAM400_FOV_SHAPES, "cluster")):
         team = swarm_problem("fov", scenarios=TEAM_FOV_RINGS[A], A=A)
         if controller_shapes(team[0]) != shapes:
             raise AssertionError(f"{A}-agent fov shapes {controller_shapes(team[0])}")
@@ -2006,7 +2091,7 @@ def main() -> int:
         big = variant == "cluster"
         rows[f"{variant}_fov{A}"]["launches"] = phase(
             f"{A}-agent fov step", swarm_path, "fov", *team, variant, rows[f"{variant}_fov{A}"],
-            plain=big, calls=3 if big else 1, split=A == 128)
+            plain=big, calls=3 if big else 1, split=A in (128, 400))
         del team
         torch.cuda.empty_cache()
     rows["tiled_lambda2"]["launches"] = phase("λ₂ connectivity step", lambda2_path,
@@ -2043,7 +2128,8 @@ def main() -> int:
         "launches": r["launches"], "max_abs_err": errs[row], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None, "lanes": r["lanes"], "phases": r["phases"],
-        "us_per_iter": r["us_per_iter"], "clocks_per_iter": r["clocks_per_iter"]}
+        "us_per_iter": r["us_per_iter"], "clocks_per_iter": r["clocks_per_iter"],
+        "c_build_ms": r["c_build_ms"]}
         for row, r in rows.items() if row not in ALONE]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -111,6 +111,10 @@ def run_cell(cfg, controller, R, seeds, steps, solver_iters, start_noise=0.05,
     return rows
 
 
+# the JAX package's alias of run_cell (mpc_cbf_tpu/apps/sweep.py:115-116), its pre-grid name
+run_size = run_cell
+
+
 def main(argv=None) -> int:
     from mpc_cbf_torch.utils import config as cfgmod
 

@@ -5,30 +5,34 @@ plain PyTorch twin (counterpart of ``mpc_cbf_tpu/ops/qp/pallas_admm.py``).
 of ``StructuredQPOperator._solve`` for a whole batch of lanes. On CUDA
 float32 tensors it launches one of the kernels of ``csrc/`` (built at first
 use by ``mpc_cbf_torch._build``), chosen from the shape alone (``VARIANTS``):
-``tiled`` for the shapes compiled in ``csrc/structured_admm_tiled.cu`` (the
-fov and connectivity control steps), ``folded`` for those of
-``csrc/structured_admm_folded.cu`` (the 32-agent fov and connectivity
-teams: one lane a block, the Woodbury correction S - WK (Ad S) folded into
-one float64 matrix a lane, C = (I - WK Ad) Ms_inv), ``generic`` for the
-other shapes whose lane fits one block, to n = 160
-(``csrc/structured_admm_generic.cu``: the same folded form for shapes known
+``tiled`` for the three shapes compiled in ``csrc/structured_admm_tiled.cu``
+(``TILED_SHAPES``: the fov and connectivity control steps), ``folded`` for
+those of ``csrc/structured_admm_folded.cu`` (the 32-agent fov and
+connectivity teams: one lane a block), ``generic`` for the other shapes
+whose lane fits one block (``csrc/structured_admm_generic.cu``: shapes known
 only at run time, such as the sweep's and run_sim's connectivity teams and
-the fov teams to 84 agents), and ``cluster`` for the lanes larger than one
-SM (``csrc/structured_admm_cluster.cu``: the folded form with one lane a
-thread-block cluster of 2 to 8 blocks that read each other's shared memory;
-fov teams from 85 agents, connectivity teams from 90 robots).
+the small fov teams), and ``cluster`` for the larger lanes
+(``csrc/structured_admm_cluster.cu``: one lane a thread-block cluster whose
+blocks read each other's shared memory; the rows of [A_s; A_d] on chip
+where they fit, else streamed from device memory once an iteration).
 ``launch_variant`` runs a kernel by name, to time or check it at a shape
-that takes another. A shape no kernel holds (a lane whose float64 C and row
-state exceed eight blocks' shared memory: fov teams past 381 agents) raises.
-On CPU tensors it runs the twin ``structured_admm_iterations_ref``, which
-is the scan body of ``mpc_cbf_tpu/ops/qp/structured.py:442-463`` as a
-Python loop. Any other CUDA input raises: there is no silent fallback.
+that takes another. On CPU tensors it runs the twin
+``structured_admm_iterations_ref``, which is the scan body of
+``mpc_cbf_tpu/ops/qp/structured.py:442-463`` as a Python loop. Any other
+CUDA input raises: there is no silent fallback.
+
+The x-update xt = M_b^-1 RHS of a lane, M_b = M_s + Ad' diag(rho_d) Ad,
+comes in one of two forms, decided by the shape alone (``takes_wk``):
+- at ``TILED_SHAPES``, the JAX package's Woodbury form xt = S - WK (Ad S),
+  S = Ms_inv RHS, with the folded correction WK [B, n, m_d];
+- at every other shape, xt = C RHS with the lane's float64 C = M_b^-1
+  [B, n, n], which ``StructuredQPOperator.folded_c`` factors on the device.
 
 Inputs are batch-first and already scaled (as ``_solve`` makes them):
   qb, x0 [B, n]; lbs, ubs, zs0, ys0 [B, m_s]; Ad [B, m_d, n]; lbd, ubd,
-  rho_d, zd0, yd0 [B, m_d]; WK [B, n, m_d] (the folded Woodbury correction
-  Ms_inv Ad' (R^-1 + Ad Ms_inv Ad')^-1); shared Ms_inv [n, n],
-  A_sb [m_s, n], rho_s [m_s].
+  rho_d, zd0, yd0 [B, m_d]; W, the shape's operand (WK, or C in float64);
+  shared Ms_inv [n, n] (read by the Woodbury form only), A_sb [m_s, n],
+  rho_s [m_s].
 Both return (x [B, n], zs, zd, ys, yd): the full iteration state, so the
 next rho phase resumes where this one stopped.
 """
@@ -48,34 +52,29 @@ Tensor = torch.Tensor
 #: kernel variants, indexed by the code ``structured_admm_variant`` returns
 #: (``AdmmVariant`` in csrc/structured_admm.cuh; -1: no kernel holds the shape)
 VARIANTS = ("tiled", "folded", "generic", "cluster")
+#: (n, m_s, m_d) of the instantiations of csrc/structured_admm_tiled.cu: the
+#: fov flagship, connectivity, and connectivity with the λ₂/CLF rows. Their
+#: loop takes WK; every other shape takes C.
+TILED_SHAPES = ((43, 127, 84), (36, 126, 6), (36, 126, 14))
 State5 = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]
 
 
-def structured_admm_iterations_ref(
-    Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, WK,
-    x0, zs0, zd0, ys0, yd0, *, iters: int, sigma: float, alpha: float,
-) -> State5:
-    """Plain PyTorch twin of the kernel: same update order, same
-    over-relaxation, batched einsums per iteration.
+def takes_wk(n: int, m_s: int, m_d: int) -> bool:
+    """Whether the loop of a shape takes the Woodbury correction WK (the
+    tiled kernel's shapes) rather than the folded float64 C."""
+    return (n, m_s, m_d) in TILED_SHAPES
 
-    One deliberate difference from the JAX scan body: the two Woodbury
-    products Ms_inv RHS and WK t, and S - WK t, accumulate in float64 (a
-    no-op for float64 inputs). S and WK t nearly cancel, and on the H100
-    the fov flagship's usable-lane rate at 8192 lanes measured 0.663 with
-    these products in float32, 0.7095 with them in float64, and 0.710 with
-    the whole loop in float64; the kernel accumulates them the same way."""
-    dt, hi = qb.dtype, torch.float64
-    Ms_inv_hi, WK_hi = Ms_inv.to(hi), WK.to(hi)
+
+def _loop(xupdate, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, x0, zs0, zd0, ys0, yd0,
+          iters, sigma, alpha) -> State5:
+    """The fixed-count loop with the x-update ``xupdate(RHS) -> xt``."""
     x, zs, zd, ys, yd = x0, zs0, zd0, ys0, yd0
     for _ in range(iters):
         # rhs = sigma x - q + As'(rho_s zs - ys) + Ad'(rho_d zd - yd)
         rs = rho_s * zs - ys                                     # [B, m_s]
         rd = rho_d * zd - yd                                     # [B, m_d]
         RHS = sigma * x - qb + rs @ A_sb + torch.einsum("bdj,bd->bj", Ad, rd)
-        # Woodbury solve: shared Ms_inv, minus the folded per-lane correction
-        S = (RHS.to(hi) @ Ms_inv_hi.T).to(dt)                    # [B, n]
-        t = torch.einsum("bdj,bj->bd", Ad, S)                    # [B, m_d]
-        xt = (S.to(hi) - torch.einsum("bie,be->bi", WK_hi, t.to(hi))).to(dt)
+        xt = xupdate(RHS)
         zAs = xt @ A_sb.T                                        # [B, m_s]
         zAd = torch.einsum("bdj,bj->bd", Ad, xt)                 # [B, m_d]
         x_new = alpha * xt + (1 - alpha) * x
@@ -89,11 +88,56 @@ def structured_admm_iterations_ref(
     return x, zs, zd, ys, yd
 
 
+def folded_iterations_ref(
+    Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, C,
+    x0, zs0, zd0, ys0, yd0, *, iters: int, sigma: float, alpha: float,
+) -> State5:
+    """The twin's loop in the C form at any shape: xt = C RHS in float64 with
+    the lane's C [B, n, n] (``Ms_inv`` is not read). The twin of every shape
+    outside ``TILED_SHAPES``; tests and measurements also hold a C-form kernel
+    launched by name at a tiled shape against it."""
+    dt, hi = qb.dtype, torch.float64
+    C = C.to(hi)
+    return _loop(lambda RHS: torch.einsum("bij,bj->bi", C, RHS.to(hi)).to(dt),
+                 A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, x0, zs0, zd0, ys0, yd0,
+                 iters, sigma, alpha)
+
+
+def structured_admm_iterations_ref(
+    Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, W,
+    x0, zs0, zd0, ys0, yd0, *, iters: int, sigma: float, alpha: float,
+) -> State5:
+    """Plain PyTorch twin of the kernel: same update order, same
+    over-relaxation, batched einsums per iteration. ``W`` is the shape's
+    operand: WK at ``TILED_SHAPES``, C elsewhere (``folded_iterations_ref``).
+
+    One deliberate difference from the JAX scan body: the x-update
+    accumulates in float64 (a no-op for float64 inputs). In the Woodbury
+    form the two products Ms_inv RHS and WK t, and S - WK t, are float64: S
+    and WK t nearly cancel, and on the H100 the fov flagship's usable-lane
+    rate at 8192 lanes measured 0.663 with them in float32, 0.7095 in
+    float64, and 0.710 with the whole loop in float64. The C form is one
+    float64 product C RHS, which skips the float32 rounding of S and Ad S
+    altogether. The kernels accumulate the same way."""
+    args = (A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, x0, zs0, zd0, ys0, yd0)
+    if not takes_wk(qb.shape[1], A_sb.shape[0], Ad.shape[1]):
+        return folded_iterations_ref(Ms_inv, *args[:9], W, *args[9:], iters=iters,
+                                     sigma=sigma, alpha=alpha)
+    dt, hi = qb.dtype, torch.float64
+    Ms_inv_hi, WK_hi = Ms_inv.to(hi), W.to(hi)
+
+    def woodbury(RHS):           # shared Ms_inv, minus the folded per-lane correction
+        S = (RHS.to(hi) @ Ms_inv_hi.T).to(dt)                    # [B, n]
+        t = torch.einsum("bdj,bj->bd", Ad, S)                    # [B, m_d]
+        return (S.to(hi) - torch.einsum("bie,be->bi", WK_hi, t.to(hi))).to(dt)
+    return _loop(woodbury, *args, iters, sigma, alpha)
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a kernel library (csrc/structured_admm.cu)."""
     ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.structured_admm_launch.argtypes = (
-        [ptr] * 21 + [c_int] * 5 + [c_float, c_float, c_int, ptr, c_int])
+        [ptr] * 22 + [c_int] * 5 + [c_float, c_float, c_int, ptr, c_int])
     lib.structured_admm_launch.restype = c_int
     lib.structured_admm_variant.argtypes = [c_int] * 3
     lib.structured_admm_variant.restype = c_int
@@ -111,17 +155,24 @@ def launch_variant(lib: ctypes.CDLL, variant: str, args, *, iters: int, sigma: f
                    alpha: float) -> State5:
     """Launch the kernel ``variant`` (a name from ``VARIANTS``) of ``lib`` on
     ``args`` (the sixteen tensors of ``structured_admm_iterations``: CUDA,
-    float32, contiguous, of matching shapes; not checked here) and return
-    the new state. It counts nothing. The package calls it from
+    contiguous, of matching shapes, float32 but for C; not checked here, but
+    for the operand: WK for ``tiled``, the float64 C for the others) and
+    return the new state. It counts nothing. The package calls it from
     ``structured_admm_iterations`` alone, with the kernel of the shape;
     tests and measurements call it to hold one kernel against another on
     a shape that would take a different one."""
-    qb, A_sb, Ad = args[3], args[1], args[6]
+    qb, A_sb, Ad, W = args[3], args[1], args[6], args[10]
     (B, n), m_s, m_d = qb.shape, A_sb.shape[0], Ad.shape[1]
+    wk = variant == "tiled"
+    if wk == (W.dtype == torch.float64):
+        raise ValueError(f"structured_admm kernel ({variant}) takes "
+                         f"{'WK as float32' if wk else 'C as float64'}, got {W.dtype}")
     outs = tuple(torch.empty((B, k), dtype=torch.float32, device=qb.device)
                  for k in (n, m_s, m_d, m_s, m_d))
+    ptrs = [a.data_ptr() for a in args]
+    ptrs[10:11] = (ptrs[10], None) if wk else (None, ptrs[10])
     err = lib.structured_admm_launch(
-        *(a.data_ptr() for a in args), *(o.data_ptr() for o in outs),
+        *ptrs, *(o.data_ptr() for o in outs),
         B, n, m_s, m_d, int(iters), float(sigma), float(alpha),
         qb.device.index, torch.cuda.current_stream(qb.device).cuda_stream,
         VARIANTS.index(variant))
@@ -132,14 +183,14 @@ def launch_variant(lib: ctypes.CDLL, variant: str, args, *, iters: int, sigma: f
 
 
 def structured_admm_iterations(
-    Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, WK,
+    Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, W,
     x0, zs0, zd0, ys0, yd0, *, iters: int, sigma: float, alpha: float,
 ) -> State5:
     """Run one rho phase of the loop: the CUDA kernel of the shape for CUDA
-    float32 tensors, the plain twin for CPU tensors. Shapes in the module
-    docstring. ``structured_admm_iterations.launches`` counts kernel
-    launches and ``.launches_by_variant`` counts them per kernel."""
-    args = (Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, WK,
+    float32 tensors (C in float64), the plain twin for CPU tensors. Shapes
+    in the module docstring. ``structured_admm_iterations.launches`` counts
+    kernel launches and ``.launches_by_variant`` counts them per kernel."""
+    args = (Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, W,
             x0, zs0, zd0, ys0, yd0)
     if qb.device.type == "cpu":
         return structured_admm_iterations_ref(*args, iters=iters, sigma=sigma, alpha=alpha)
@@ -148,16 +199,18 @@ def structured_admm_iterations(
 
     B, n = qb.shape
     m_s, m_d = A_sb.shape[0], Ad.shape[1]
+    wk = takes_wk(n, m_s, m_d)
     shapes = {
         "Ms_inv": (n, n), "A_sb": (m_s, n), "rho_s": (m_s,), "qb": (B, n),
         "lbs": (B, m_s), "ubs": (B, m_s), "Ad": (B, m_d, n), "lbd": (B, m_d),
-        "ubd": (B, m_d), "rho_d": (B, m_d), "WK": (B, n, m_d), "x0": (B, n),
-        "zs0": (B, m_s), "zd0": (B, m_d), "ys0": (B, m_s), "yd0": (B, m_d),
+        "ubd": (B, m_d), "rho_d": (B, m_d), "WK" if wk else "C": (B, n, m_d) if wk else (B, n, n),
+        "x0": (B, n), "zs0": (B, m_s), "zd0": (B, m_d), "ys0": (B, m_s), "yd0": (B, m_d),
     }
     for (name, shape), a in zip(shapes.items(), args):
-        if a.device != qb.device or a.dtype != torch.float32:
+        want = torch.float64 if name == "C" else torch.float32
+        if a.device != qb.device or a.dtype != want:
             raise ValueError(f"structured_admm_iterations: {name} is {a.dtype} on "
-                             f"{a.device}; the kernel takes float32 on {qb.device}")
+                             f"{a.device}; the kernel takes {want} on {qb.device}")
         if tuple(a.shape) != shape:
             raise ValueError(f"structured_admm_iterations: {name} has shape "
                              f"{tuple(a.shape)}, expected {shape}")
@@ -169,12 +222,10 @@ def structured_admm_iterations(
     lib = _lib()
     code = lib.structured_admm_variant(n, m_s, m_d)
     if code < 0:
-        A = largest_fov_team(lib)
         raise ValueError(
             f"structured_admm_iterations: no kernel holds the shape (n={n}, m_s={m_s}, "
-            f"m_d={m_d}): a lane's float64 C and row state exceed the shared memory of a "
-            f"cluster of 8 blocks. The largest fov team a kernel holds is {A} agents, "
-            f"(n, m_s, m_d) = {fov_team_shape(A)}")
+            f"m_d={m_d}): the vectors and row state of a lane exceed the shared memory of "
+            f"a cluster's blocks")
     variant = VARIANTS[code]
     outs = launch_variant(lib, variant, args, iters=iters, sigma=sigma, alpha=alpha)
     structured_admm_iterations.launches += 1
@@ -188,30 +239,27 @@ def fov_team_shape(A: int) -> Tuple[int, int, int]:
     return 35 + A, 119 + A, 12 * (A - 1)
 
 
-def largest_fov_team(lib: ctypes.CDLL) -> int:
-    """The largest fov team that some kernel of ``lib`` holds."""
-    A = 2
-    while lib.structured_admm_variant(*fov_team_shape(A + 1)) >= 0:
-        A += 1
-    return A
-
-
 structured_admm_iterations.launches = 0
 structured_admm_iterations.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def random_phase_inputs(rng: np.random.Generator, B: int, n: int, m_s: int, m_d: int,
-                        inactive_frac: float = 0.25, distinct: int | None = None):
+                        inactive_frac: float = 0.25, distinct: int | None = None,
+                        operand: str | None = None):
     """Seeded, well-posed inputs for one rho phase, made the way ``_solve``
     makes them: an SPD shared system M_s and its f64 inverse, per-lane
     dynamic rows with some inactive (rho_d = 1e-12, bounds +-1e20), the
-    folded Woodbury WK, and a clipped initial state. Returns float32 numpy
-    arrays in the argument order of ``structured_admm_iterations``.
-    Used to hold the kernel against its twin. ``distinct``: make that many
-    lanes and repeat them to B (a timing at hundreds of lanes of a large team
-    would otherwise wait minutes for the host's inverses of [B, m_d, m_d])."""
+    operand of the x-update, and a clipped initial state. Returns numpy
+    arrays in the argument order of ``structured_admm_iterations``, float32
+    but for C. ``operand``: "wk" (the folded Woodbury WK), "c" (the float64
+    C = (M_s + Ad' diag(rho_d) Ad)^-1, of the float32-rounded Ad the loop
+    reads) or None (the shape's, ``takes_wk``); the other arrays do not
+    depend on it. Used to hold the kernel against its twin. ``distinct``:
+    make that many lanes and repeat them to B."""
+    if operand is None:
+        operand = "wk" if takes_wk(n, m_s, m_d) else "c"
     if distinct is not None and distinct < B:
-        arrays = random_phase_inputs(rng, distinct, n, m_s, m_d, inactive_frac)
+        arrays = random_phase_inputs(rng, distinct, n, m_s, m_d, inactive_frac, operand=operand)
         reps = -(-B // distinct)
         return arrays[:3] + tuple(np.ascontiguousarray(np.concatenate([a] * reps)[:B])
                                   for a in arrays[3:])
@@ -222,17 +270,23 @@ def random_phase_inputs(rng: np.random.Generator, B: int, n: int, m_s: int, m_d:
     P = 0.5 * np.eye(n) + 0.1 * G @ G.T
     eq = rng.random(m_s) < 0.1
     rho_s = np.where(eq, 1.0, 0.1)
-    Ms_inv = np.linalg.inv(P + 1e-6 * np.eye(n) + (A_s.T * rho_s) @ A_s)
+    M_s = P + 1e-6 * np.eye(n) + (A_s.T * rho_s) @ A_s
+    Ms_inv = np.linalg.inv(M_s)
 
     Ad = rng.normal(size=(B, m_d, n)) / np.sqrt(n)
     inactive = rng.random((B, m_d)) < inactive_frac
     rho_d = np.where(inactive, 1e-12, 0.1)
-    # matmul, not einsum: BLAS makes the 32-agent shapes a second, not a minute
-    W = Ms_inv @ Ad.transpose(0, 2, 1)                  # [B, n, m_d]
-    sr = np.sqrt(rho_d)
-    Cp = np.eye(m_d) + sr[:, :, None] * (Ad @ W) * sr[:, None, :]
-    K = sr[:, :, None] * np.linalg.inv(Cp) * sr[:, None, :]
-    WK = W @ K
+    if operand == "wk":
+        # matmul, not einsum: BLAS makes the 32-agent shapes a second, not a minute
+        W = Ms_inv @ Ad.transpose(0, 2, 1)              # [B, n, m_d]
+        sr = np.sqrt(rho_d)
+        Cp = np.eye(m_d) + sr[:, :, None] * (Ad @ W) * sr[:, None, :]
+        K = sr[:, :, None] * np.linalg.inv(Cp) * sr[:, None, :]
+        op = W @ K
+    else:
+        Ad32 = Ad.astype(np.float32).astype(np.float64)
+        Aw = Ad32 * np.sqrt(rho_d)[..., None]
+        op = np.linalg.inv(M_s + Aw.transpose(0, 2, 1) @ Aw)   # [B, n, n]
 
     qb = rng.normal(size=(B, n))
     ubs = rng.uniform(0.2, 2.0, (B, m_s))
@@ -244,6 +298,7 @@ def random_phase_inputs(rng: np.random.Generator, B: int, n: int, m_s: int, m_d:
     zd0 = np.clip(np.einsum("bdj,bj->bd", Ad, x0), lbd, ubd)
     ys0 = rng.normal(0.0, 0.1, (B, m_s))
     yd0 = np.where(inactive, 0.0, rng.normal(0.0, 0.1, (B, m_d)))
-    arrays = (Ms_inv, A_s, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, WK,
+    arrays = (Ms_inv, A_s, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, op,
               x0, zs0, zd0, ys0, yd0)
-    return tuple(np.ascontiguousarray(a, np.float32) for a in arrays)
+    return tuple(np.ascontiguousarray(a, np.float64 if i == 10 and operand == "c"
+                                      else np.float32) for i, a in enumerate(arrays))

@@ -6,16 +6,28 @@ the equality rows, the sampled accel/vel bound rows and the
 slack-nonnegativity rows have identical coefficients (only their targets
 differ per agent); only the CBF + separating-hyperplane rows (m_d ~ tens)
 differ per agent. So A = [A_s (shared, m_s rows); A_d (per-problem, m_d
-rows)] and the ADMM x-update runs through the Woodbury identity:
+rows)], and the ADMM x-update solves with
 
-    M_b = M_s + U_b' R_b U_b,   M_s = P + sigma I + A_s' diag(rho_s) A_s
-    M_b^{-1} v = Ms_inv v - W_b (C_b)^{-1} W_b' v
-    W_b = Ms_inv U_b',   C_b = R_b^{-1} + U_b Ms_inv U_b'
+    M_b = M_s + A_d' R_b A_d,   M_s = P + sigma I + A_s' diag(rho_s) A_s
 
-Ms_inv is precomputed once at build time in float64 numpy; the per-lane
-inner inverse is folded into one constant tensor WK per rho phase, and the
+M_s and its inverse Ms_inv are precomputed once at build time in float64
+numpy. Each rho phase makes one per-lane operand of the x-update, and the
 fixed-count iteration loop runs in the hand-written CUDA kernel of
-``fused_admm.py`` (or its plain twin on the CPU).
+``fused_admm.py`` (or its plain twin on the CPU). The operand's form is
+decided by the shape alone (``fused_admm.takes_wk``):
+- the tiled kernel's three shapes (the fov flagship, connectivity and
+  λ₂/CLF connectivity) keep the JAX package's Woodbury form: the folded
+  correction WK = Ms_inv A_d' (R^-1 + A_d Ms_inv A_d')^-1 [B, n, m_d]
+  (``woodbury``);
+- every other shape takes C = M_b^-1 [B, n, n] in float64 (``folded_c``):
+  a Cholesky of the lane's [n, n] SPD matrix where the Woodbury form
+  inverts an [m_d, m_d] one (163 against 1524 rows at a 128-agent fov team).
+  A deliberate difference from the JAX package, which keeps the float32
+  Woodbury form at every shape: the float32 cancellation between Ms_inv RHS
+  and WK t (``fused_admm.structured_admm_iterations_ref``) is why C is
+  float64, and a float32 [B, m_d, m_d] inverse of a team of hundreds of
+  agents does not fit the card (four [256, 4572, 4572] tensors at 382
+  agents, about 86 GB).
 
 Left out on purpose (TPU-only in the JAX package):
 - ``_chunked_inv`` / ``inv_chunk``: a VMEM workaround for XLA's blocked
@@ -37,7 +49,7 @@ import torch
 
 from mpc_cbf_torch.types import BIG
 from mpc_cbf_torch.ops.qp.fused_admm import (
-    structured_admm_iterations, structured_admm_iterations_ref)
+    structured_admm_iterations, structured_admm_iterations_ref, takes_wk)
 from mpc_cbf_torch.ops.qp.polish import PolishConfig, make_guards, polish_structured
 
 Tensor = torch.Tensor
@@ -71,13 +83,14 @@ class StructuredConfig:
     # reference); True = as None
     use_kernel: Optional[bool] = None
     # lanes per chunk for the WHOLE solve (a Python loop over lane slices,
-    # the last one may be shorter). The Woodbury precompute holds four
-    # per-lane [m_d, m_d] tensors (AMA, Cp, Cp_inv, K) on the device; at
-    # swarm scale they dominate: a 32-agent fov batch of 32768 lanes with
-    # m_d = 372 is 4 x 18.1 GB. None = auto: off below m_d = 128, else the
-    # largest power of two that keeps those tensors within 8 GB, a budget
-    # chosen for an 80 GB card (the JAX package's 2.5 GB was sized for a
-    # 16 GB TPU). 0 = off; k = k lanes.
+    # the last one may be shorter). The C form's precompute (folded_c) holds
+    # per lane a float64 copy of A_d [m_d, n] and four float64 [n, n]
+    # tensors (the product, its factor, the factor's inverse, C); at swarm
+    # scale they dominate: a 400-agent fov lane is 23 MB. None = auto: off
+    # below m_d = 128 (every WK-form shape), else the largest power of two,
+    # at least 256, that keeps those tensors within 8 GB, a budget chosen
+    # for an 80 GB card (the JAX package's 2.5 GB was sized for a 16 GB TPU
+    # and its four [m_d, m_d] float32 tensors). 0 = off; k = k lanes.
     lane_chunk: Optional[int] = None
     # f64 active-set polish after the ADMM iterations (ops/qp/polish.py):
     # certifies a lane when its point is feasible and stationary to 1e-6
@@ -172,6 +185,8 @@ class StructuredQPOperator:
         if len(self._guard_rows):
             slack_row[list(self._guard_rows)] = True
         self.phases = []
+        # each phase's M_s in float64, beside self.phases: the C form's product
+        self.M_s = []
         for scale, n_it in ((1.0, cfg.iters - iters_hi),
                             (cfg.rho_hi_scale, iters_hi)):
             if n_it <= 0:
@@ -181,6 +196,8 @@ class StructuredQPOperator:
             M_s = P64 + cfg.sigma * np.eye(n) + (A64.T * rho_s) @ A64
             self.phases.append((n_it, t(np.linalg.inv(M_s)), t(rho_s),
                                 float(cfg.rho * scale)))
+            self.M_s.append(torch.as_tensor(M_s, dtype=torch.float64, device=self.device))
+        self.wk_form = takes_wk(n, self.m_s, m_d)
         # aliases for the entry phase
         _, self.Ms_inv, self.rho_s, self.rho_d = self.phases[0]
 
@@ -205,7 +222,7 @@ class StructuredQPOperator:
         if q.dtype != self.dtype or q.device != self.device:
             raise ValueError(f"operator holds {self.dtype} on {self.device}, "
                              f"got q as {q.dtype} on {q.device}")
-        chunk = self._lane_chunk(q.shape[0], q.element_size())
+        chunk = self._lane_chunk(q.shape[0])
         if not chunk:
             return self._solve(q, lb_s, ub_s, A_d, lb_d, ub_d, x0, ys0, yd0)
         # lanes are independent, so the chunked solve equals the whole one
@@ -215,19 +232,18 @@ class StructuredQPOperator:
             split, (q, lb_s, ub_s, A_d, lb_d, ub_d, x0, ys0, yd0)))]
         return StructuredSolution(*(torch.cat(f) for f in zip(*parts)))
 
-    #: device bytes the auto lane_chunk allows the per-lane [m_d, m_d]
-    #: tensors of ``woodbury`` (a tenth of an 80 GB card)
+    #: device bytes the auto lane_chunk allows the per-lane tensors of
+    #: ``folded_c`` (a tenth of an 80 GB card)
     LANE_CHUNK_BUDGET = 8_000_000_000
 
-    def _lane_chunk(self, B: int, itemsize: int = 4) -> int:
+    def _lane_chunk(self, B: int) -> int:
         """Resolved lanes per chunk (0 = no chunking); see
-        StructuredConfig.lane_chunk. itemsize: bytes per element of the
-        solve's dtype (float64 halves the lane count)."""
+        StructuredConfig.lane_chunk."""
         c = self.cfg.lane_chunk
         if c is None:
             if self.m_d < 128:
                 return 0
-            per_lane = 4 * itemsize * self.m_d * self.m_d
+            per_lane = 8 * (self.m_d * self.n + 4 * self.n * self.n)
             c = 1 << int(np.floor(np.log2(max(self.LANE_CHUNK_BUDGET // per_lane, 256))))
         return 0 if c <= 0 or B <= c else c
 
@@ -297,6 +313,28 @@ class StructuredQPOperator:
         K = sr[:, :, None] * Cp_inv * sr[:, None, :]             # [B, m_d, m_d]
         return torch.einsum("bid,bde->bie", W, K)
 
+    @staticmethod
+    def folded_c(M_s: Tensor, Ad: Tensor, rho_d: Tensor) -> Tensor:
+        """The x-update's operand of one rho phase in the C form,
+        C = (M_s + Ad' diag(rho_d) Ad)^-1  [B, n, n] float64, from the
+        phase's float64 M_s [n, n].
+
+        The product is formed in float64 (one batched DGEMM of the rows
+        scaled by sqrt(rho_d); the masked rows' rho of 1e-12 adds nothing),
+        factored by ``cholesky_ex`` and inverted by two triangular solves
+        against the identity, as ``linsolve.spd_solve`` solves (not
+        ``cholesky_inverse``: MAGMA's batched potrs syncs). No host sync; a
+        lane whose product is not positive definite comes out NaN alone."""
+        B, _, n = Ad.shape
+        hi = torch.float64
+        Aw = Ad.to(hi, copy=True).mul_(torch.sqrt(rho_d.to(hi))[..., None])   # [B, m_d, n]
+        L, info = torch.linalg.cholesky_ex(torch.baddbmm(M_s, Aw.mT, Aw))
+        del Aw
+        L.masked_fill_((info != 0)[:, None, None], float("nan"))
+        eye = torch.eye(n, dtype=hi, device=Ad.device).expand(B, n, n)
+        L_inv = torch.linalg.solve_triangular(L, eye, upper=False)
+        return torch.linalg.solve_triangular(L.mT, L_inv, upper=True)
+
     def _solve(self, q: Tensor, lb_s: Tensor, ub_s: Tensor,
                A_d: Tensor, lb_d: Tensor, ub_d: Tensor,
                x0: Optional[Tensor] = None,
@@ -322,13 +360,14 @@ class StructuredQPOperator:
         # better than rescaling, see mpc_cbf_tpu/ops/qp/structured.py)
         loop = structured_admm_iterations_ref if cfg.use_kernel is False \
             else structured_admm_iterations
-        for n_it, Ms_inv, rho_s, rho_d_base in self.phases:
+        for (n_it, Ms_inv, rho_s, rho_d_base), M_s in zip(self.phases, self.M_s):
             rho_d = torch.where(inactive_d, torch.full_like(e_d, 1e-12),
                                 torch.full_like(e_d, rho_d_base))
-            WK = self.woodbury(Ms_inv, Ad, rho_d)
+            W = self.woodbury(Ms_inv, Ad, rho_d) if self.wk_form else \
+                self.folded_c(M_s, Ad, rho_d)
             x, zs, zd, ys, yd = loop(
                 Ms_inv, self.A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d,
-                WK.contiguous(), x.contiguous(), zs.contiguous(), zd.contiguous(),
+                W.contiguous(), x.contiguous(), zs.contiguous(), zd.contiguous(),
                 ys.contiguous(), yd.contiguous(),
                 iters=n_it, sigma=cfg.sigma, alpha=cfg.alpha)
 

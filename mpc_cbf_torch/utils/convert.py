@@ -4,7 +4,8 @@ The JAX package's arrays cross over as numpy (``np.asarray(jax_array)``);
 nothing here imports jax. Used to feed the same problem and the same warm
 start to both packages:
 - ``set_structured_constants``: a StructuredQPOperator's constants (D,
-  E_s, gamma, Pb, A_sb and each phase's Ms_inv, rho_s and rho_d);
+  E_s, gamma, Pb, A_sb and each phase's Ms_inv, rho_s and rho_d, and the
+  float64 M_s = Ms_inv^-1 of the C form);
 - ``state_from_numpy``: a ``State``;
 - ``warm_start_from_numpy`` / ``warm_start_to_numpy``: the warm primal and
   the warm duals (ys, yd) of an ``IMPCResult``, both ways (None duals for
@@ -39,7 +40,10 @@ def set_structured_constants(op: StructuredQPOperator, *, D, E_s, gamma: float, 
                              phases: Sequence[Tuple[int, object, object, float]]) -> None:
     """Overwrite op's equilibration and phase constants with the JAX
     operator's (``phases``: its list of (iters, Ms_inv, rho_s, rho_d)).
-    Shapes and the phase iteration counts must match op's."""
+    Shapes and the phase iteration counts must match op's. Each phase's
+    float64 M_s (the C form's, which the JAX package does not keep) becomes
+    the inverse of the JAX operator's Ms_inv, so that the port's C =
+    (M_s + A_d' R A_d)^-1 is the JAX Woodbury solve with the same Ms_inv."""
     if len(phases) != len(op.phases):
         raise ValueError(f"{len(phases)} phases given, operator has {len(op.phases)}")
     t = op._tensor
@@ -57,6 +61,8 @@ def set_structured_constants(op: StructuredQPOperator, *, D, E_s, gamma: float, 
         setattr(op, name, val)
     op.gamma = float(gamma)
     op.phases = new_phases
+    op.M_s = [torch.linalg.inv(torch.as_tensor(np.array(M, np.float64), device=op.device))
+              for _, M, _, _ in phases]
     _, op.Ms_inv, op.rho_s, op.rho_d = op.phases[0]
 
 

@@ -5,7 +5,7 @@
                                          [--swarm-conn LAYOUT ...] [--swarm-fov LAYOUT ...]
                                          [--folded-at fov|lambda2 LAYOUT ...]
                                          [--generic LAYOUT ...] [--generic-team24 LAYOUT ...]
-                                         [--generic-wide LAYOUT ...] [--cluster [LAYOUT ...]]
+                                         [--cluster [LAYOUT ...]] [--stream [NW ...]]
                                          [--timing-check]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and nvcc.
@@ -16,8 +16,9 @@ lines at the end of csrc/structured_admm_folded.cu (32-agent fov, 32-agent
 connectivity). A LAYOUT of the tiled kernel is G,L,TPL (groups a block,
 lanes a group, threads a lane) or G,L,TPL,RG,CG (also the grid of register
 tiles A_d is cut into); one of the folded kernel is T,RG,CG (threads a
-block, the grid of register tiles [A_s; A_d] is cut into) or T,RG,CG,KC
-(also the rows of A_d the prologue stages at a time). Only the shapes named
+block, the grid of register tiles [A_s; A_d] is cut into). Every kernel
+gets the operand it takes (random_phase_inputs: WK for tiled, the float64
+C for the others) of the same draw. Only the shapes named
 by an option are built and timed; with no option, the fov, connectivity and
 λ₂ shapes with their defaults. The i-th layout of every shape is built
 together (a shorter list repeats its last): this script writes a copy of
@@ -30,7 +31,7 @@ lanes a launch gets there (CUDA events, mean of 3 launches after a warm-up):
 lanes, 4 x 50 at the 4096 lanes of the 32-agent connectivity step, 550 + 50
 + 150 + 50 at one 2048-lane chunk of the 32-agent fov step. --folded-at tries the folded kernel at a shape the package gives to
 the tiled kernel (fov or lambda2): the copy's ``SwarmConn`` line of the
-folded source becomes that shape with the layouts T,RG,CG,KC, launched by
+folded source becomes that shape with the layouts T,RG,CG, launched by
 name beside the tiled kernel of the same copy (so not together with
 --swarm-conn, which rewrites the same line). --generic times the generic
 kernel (csrc/structured_admm_generic.cu) at the sweep's team of 10 (45, 135,
@@ -38,22 +39,24 @@ kernel (csrc/structured_admm_generic.cu) at the sweep's team of 10 (45, 135,
 50 + 150 + 50 iterations), with the copy's ``RegN64`` line (the one both
 shapes take) changed; --generic-team24 at the 24-agent fov team (59, 143,
 276) on 768 lanes (550 + 50 + 150 + 50), with the ``RegN64Tall`` line
-changed; --generic-wide at the fov teams of 40 and 64 agents (75, 159, 468),
-(99, 183, 756) on 768 lanes (the same phases), with the ``FromMemory`` line
 changed. --cluster times the cluster kernel (csrc/structured_admm_cluster.cu)
 with the copy's ``kLayouts`` line reduced to one layout CS,chip or CS,mem
 (blocks a lane, the rows of [A_s; A_d] in the cluster's shared memory or
-read from device memory; none named: 2, 4 and 8 blocks each way) at the fov
-teams of 96, 128 and 256 agents on 96, 256 and 256 lanes (the lanes of one
-launch of benchmarks/swarm.py's step: one ring of 96, a lane chunk of 256;
-550 + 50 + 150 + 50) and the connectivity teams of 128 and 256 robots on
-128 and 256 lanes (one run_sim team; 150 + 50 + 150 + 50); a layout that
-does not hold a shape is reported as refused. Inputs of the cluster shapes
-repeat 8 distinct lanes. A LAYOUT of
-the generic kernel is TC,MAXW,REG[,P[,MINB]]: GenericShape<TC, MAXW, REG, P,
-MINB> (column slots a lane, warps a block at most, [A_s; A_d] in registers
-(true) or read each iteration (false), threads a row of C (default 4),
-blocks an SM for the launch bounds (default 1)). --timing-check builds
+streamed from device memory; none named: 2, 4 and 8 on chip, 8 and 16
+streamed) at the fov teams of 96, 128, 256 and 400 agents on 96, 512, 256
+and 256 lanes (the lanes of one launch of benchmarks/swarm.py's step: one
+ring of 96, 4 rings of 128, a lane chunk of 256; 550 + 50 + 150 + 50) and
+the connectivity teams of 128 and 256 robots on 128 and 256 lanes (one
+run_sim team; 150 + 50 + 150 + 50); a layout that does not hold a shape is
+reported as refused. Inputs of the cluster shapes repeat 8 distinct lanes.
+--stream times the streamed layout of the cluster kernel with the copy's
+``kStreamWarps`` line reduced to one count NW of warps a block (none named:
+8 and 4; at most 8, the kernel's launch bounds) at the fov teams of 256 and
+400 agents on 256 lanes (550 + 50 + 150 + 50); a count that does not fit a
+block is reported as refused.
+A LAYOUT of the generic kernel is TC,MAXW[,P[,MINB]]: GenericShape<TC, MAXW,
+P, MINB> (column slots a lane, warps a block at most, threads a row of C
+(default 4), blocks an SM for the launch bounds (default 1)). --timing-check builds
 nothing: it times the package's generic kernel at the sweep's team of 10 on
 150 lanes, one 50- and one 150-iteration phase, ten windows of each with the
 card spun first (as ``cuda_ms`` does) and ten without, and prints every
@@ -105,23 +108,23 @@ SHAPES = {"fov": Target(8192, (43, 127, 84), PHASES, "Fov", TILED, "tiled", None
           # --generic-team24: the RegN64Tall line
           "generic_team24": Target(768, (59, 143, 276), SWARM_FOV_PHASES, "RegN64Tall", GENERIC,
                                    "generic", None),
-          # --generic-wide: the FromMemory line
-          "generic_team40": Target(768, (75, 159, 468), SWARM_FOV_PHASES, "FromMemory", GENERIC,
-                                   "generic", None),
-          "generic_team64": Target(768, (99, 183, 756), SWARM_FOV_PHASES, "FromMemory", GENERIC,
-                                   "generic", None),
           # --cluster: the kLayouts line
           **{f"cluster_fov{A}": Target(lanes, fused_admm.fov_team_shape(A), SWARM_FOV_PHASES,
                                        "kLayouts", CLUSTER, "cluster", None)
-             for A, lanes in ((96, 96), (128, 256), (256, 256))},
+             for A, lanes in ((96, 96), (128, 512), (256, 256), (400, 256))},
           **{f"cluster_conn{R}": Target(R, (35 + R, 125 + R, 2 * R - 2), RUN_SIM_PHASES,
                                         "kLayouts", CLUSTER, "cluster", None)
-             for R in (128, 256)}}
+             for R in (128, 256)},
+          # --stream: the kStreamWarps line
+          **{f"stream_fov{A}": Target(256, fused_admm.fov_team_shape(A), SWARM_FOV_PHASES,
+                                      "kStreamWarps", CLUSTER, "cluster", None)
+             for A in (256, 400)}}
 GENERIC_TARGETS = {"generic": ("generic_sweep_r10", "generic_run_sim"),
-                   "generic_team24": ("generic_team24",),
-                   "generic_wide": ("generic_team40", "generic_team64")}
+                   "generic_team24": ("generic_team24",)}
 CLUSTER_TARGETS = tuple(name for name in SHAPES if name.startswith("cluster"))
-CLUSTER_LAYOUTS = ["2,chip", "4,chip", "8,chip", "2,mem", "4,mem", "8,mem"]
+CLUSTER_LAYOUTS = ["2,chip", "4,chip", "8,chip", "8,mem", "16,mem"]
+STREAM_TARGETS = tuple(name for name in SHAPES if name.startswith("stream"))
+STREAM_LAYOUTS = ["8", "4"]
 KW = dict(sigma=1e-6, alpha=1.6)
 
 
@@ -151,7 +154,11 @@ def build(layouts: dict):
         for name, layout in layouts.items():
             alias = SHAPES[name].alias
             numbers = layout.count(",") + 1           # tiled: 3 (G,L,TPL) or 5 (RG,CG too); folded: 3
-            if name.startswith("cluster"):           # one layout: CS,chip or CS,mem
+            if name.startswith("stream"):            # one count of warps
+                text, n = re.subn(r"constexpr int kStreamWarps\[\] = \{[^;]*\};",
+                                  f"constexpr int kStreamWarps[] = {{{layout}}};", text)
+                n = min(n, 1)                         # every stream target names the same line
+            elif name.startswith("cluster"):         # one layout: CS,chip or CS,mem
                 cs, place = layout.split(",")
                 text, n = re.subn(r"constexpr ClusterChoice kLayouts\[\] = \{.*\};",
                                   f"constexpr ClusterChoice kLayouts[] = {{{{{cs}, "
@@ -181,15 +188,17 @@ def build(layouts: dict):
     report = {}                                       # using-name -> ptxas' registers and spills
     for name in layouts:
         n, m_s, m_d = SHAPES[name].shape
-        key = f"ShapeILi{n}ELi{m_s}ELi{m_d}E"
-        if name.startswith("cluster"):                # cluster_kernel<ROWS>
-            key = f"ILb{int(layouts[name].endswith('chip'))}E"
-        elif name.startswith("generic"):                # GenericShape<TC, MAXW, REG, P>
-            tc, maxw, reg, *rest = (f.strip() for f in layouts[name].split(","))
+        key, kernel = f"ShapeILi{n}ELi{m_s}ELi{m_d}E", f"{SHAPES[name].variant}_kernel"
+        if name.startswith("stream"):
+            key = kernel = "stream_kernel"
+        elif name.startswith("cluster"):              # cluster_kernel (on chip) or stream_kernel
+            key = kernel = "cluster_kernel" if layouts[name].endswith("chip") else "stream_kernel"
+        elif name.startswith("generic"):                # GenericShape<TC, MAXW, P, MINB>
+            tc, maxw, *rest = (f.strip() for f in layouts[name].split(","))
             p, minb = (rest + ["4", "1"][len(rest):])[:2]
-            key = f"GenericShapeILi{tc}ELi{maxw}ELb{int(reg == 'true')}ELi{p}ELi{minb}E"
+            key = f"GenericShapeILi{tc}ELi{maxw}ELi{p}ELi{minb}E"
         at = [i for i, ln in enumerate(lines) if "Compiling entry function" in ln
-              and key in ln and f"{SHAPES[name].variant}_kernel" in ln]
+              and key in ln and kernel in ln]
         report[name] = " | ".join(ln.strip() for i in at[:1] for ln in lines[i + 1:i + 4]
                                   if "registers" in ln or "spill" in ln)
     return fused_admm.bind(ctypes.CDLL(str(lib))), report
@@ -234,32 +243,34 @@ def main():
                     help="fov or lambda2, then T,RG,CG,KC layouts of the folded kernel at that "
                          "shape, e.g. fov 256,32,8,32")
     ap.add_argument("--generic", nargs="*",
-                    help="TC,MAXW,REG[,P[,MINB]] layouts of the generic kernel, e.g. "
-                         "2,8,true,4,2 2,8,true,8,2 2,8,false,4,2 (timed at the sweep's team of "
-                         "10 and run_sim's team)")
+                    help="TC,MAXW[,P[,MINB]] layouts of the generic kernel, e.g. 2,8,4,2 "
+                         "2,8,8,2 (timed at the sweep's team of 10 and run_sim's team)")
     ap.add_argument("--generic-team24", nargs="*",
-                    help="TC,MAXW,REG[,P[,MINB]] layouts of the generic kernel at the 24-agent "
-                         "fov team, e.g. 2,16,true")
-    ap.add_argument("--generic-wide", nargs="*",
-                    help="TC,MAXW,REG[,P[,MINB]] layouts of the generic kernel at the fov teams "
-                         "of 40 and 64 agents, e.g. 5,8,false 5,16,false")
+                    help="TC,MAXW[,P[,MINB]] layouts of the generic kernel at the 24-agent fov "
+                         "team, e.g. 2,16")
     ap.add_argument("--cluster", nargs="*",
                     help="CS,chip or CS,mem layouts of the cluster kernel (none named: "
                          + " ".join(CLUSTER_LAYOUTS) + ")")
+    ap.add_argument("--stream", nargs="*",
+                    help="warps a block of the cluster kernel's streamed layout (none named: "
+                         + " ".join(STREAM_LAYOUTS) + ")")
     ap.add_argument("--timing-check", action="store_true",
                     help="time the package's generic kernel with and without the spin")
     opt = ap.parse_args()
     asked = {name: getattr(opt, name) for name in SHAPES
-             if not name.endswith("_folded") and not name.startswith(("generic", "cluster"))
+             if not name.endswith("_folded")
+             and not name.startswith(("generic", "cluster", "stream"))
              and getattr(opt, name)}
     if opt.cluster is not None:
         asked.update({name: opt.cluster or CLUSTER_LAYOUTS for name in CLUSTER_TARGETS})
+    if opt.stream is not None:
+        asked.update({name: opt.stream or STREAM_LAYOUTS for name in STREAM_TARGETS})
     for option, targets in GENERIC_TARGETS.items():
         held = []              # layouts every target of the option holds: they rewrite one line
         for layout in getattr(opt, option) or ():
-            tc, maxw, reg = (f.strip() for f in layout.split(",")[:3])
-            short = [name for name in targets if 32 * int(tc) < SHAPES[name].shape[0] or (
-                reg == "true" and 32 * int(maxw) < sum(SHAPES[name].shape[1:]))]
+            tc, maxw = (f.strip() for f in layout.split(",")[:2])
+            short = [name for name in targets if 32 * int(tc) < SHAPES[name].shape[0] or
+                     32 * int(maxw) < sum(SHAPES[name].shape[1:])]
             if short:
                 print(f"generic layout {layout} does not hold {short}; another line of the "
                       "source would run them, so it is not timed")
@@ -283,16 +294,25 @@ def main():
     if not asked:           # no option: the three shapes of the 8- and 4-robot steps
         asked = {"fov": ["1,4,160", "1,4,128", "2,2,128"], "conn": ["2,4,64", "1,8,64", "2,4,96"],
                  "lambda2": ["2,4,64,2,12", "2,4,64,2,9", "2,4,64,7,9"]}
-    data, ref = {}, {}
+    data, beside, ref = {}, {}, {}
     for name in asked:
         B, shape = SHAPES[name].lanes, SHAPES[name].shape
-        big = name.startswith("cluster")
-        arrays = fused_admm.random_phase_inputs(np.random.default_rng(1), B, *shape,
-                                                distinct=8 if big else None)
-        data[name] = [torch.from_numpy(a).cuda() for a in arrays]
+        big = name.startswith(("cluster", "stream"))
+
+        def arrays(operand):
+            return [torch.from_numpy(a).cuda() for a in fused_admm.random_phase_inputs(
+                np.random.default_rng(1), B, *shape, distinct=8 if big else None,
+                operand=operand)]
         keep = 16 if big else 256
-        small = [a[:keep].contiguous() if a.shape[0] == B else a for a in data[name]]
-        ref[name] = (small, fused_admm.structured_admm_iterations_ref(*small, iters=20, **KW))
+        short = lambda a: [x[:keep].contiguous() if x.shape[0] == B else x for x in a]
+        data[name] = arrays("wk" if SHAPES[name].variant == "tiled" else "c")
+        # the twin takes the shape's operand: the same draw's (a C-form kernel at a tiled shape
+        # is held to the Woodbury form, to the float32 rounding that the C form skips)
+        own = data[name] if SHAPES[name].beside is None else arrays(None)
+        if SHAPES[name].beside is not None:
+            beside[name] = own
+        ref[name] = (short(data[name]),
+                     fused_admm.structured_admm_iterations_ref(*short(own), iters=20, **KW))
 
     for i in range(max(map(len, asked.values()))):
         layouts = {name: lst[min(i, len(lst) - 1)] for name, lst in asked.items()}
@@ -308,7 +328,7 @@ def main():
                 phases, old = SHAPES[name].phases, SHAPES[name].beside
                 if old is None:
                     continue
-                total, per = step_ms(lib, old, args, phases)
+                total, per = step_ms(lib, old, beside[name], phases)
                 print(f"{name}: beside it the {old} kernel, control step {total:.3f} ms ("
                       + ", ".join(f"{it}: {ms:.3f}" for it, ms in per.items()) + ")")
         for name, args in data.items():

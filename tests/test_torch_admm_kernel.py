@@ -11,11 +11,14 @@ kernel (run_sim's 3-robot connectivity (38, 128, 4), the sweep's teams of 2
 and 10 (37, 127, 2), (45, 135, 18), a 24-agent fov team (59, 143, 276)) for
 40 iterations, to rtol = atol = 2e-4: the bar of
 tests/test_pallas_admm.py:53-55 between two float32 loops that sum in
-another order. The folded form of the loop (the algebra of the ``folded``
-kernel) and the generic kernel's three stages (``generic_loop``) are held to
-the twin and to the Pallas kernel at the same bar (the ``cluster`` kernel's
-loop: tests/test_torch_cluster.py). On the card every kernel variant (tiled,
-folded, generic, cluster) is held to it too.
+another order. The twin takes the shape's operand (``random_phase_inputs``
+makes it): the Woodbury WK at the tiled kernel's shapes, the float64 C
+elsewhere; the Pallas kernel takes WK of the same draw. The C form of the
+loop (``folded_loop``, the algebra of the ``folded`` kernel, also at the
+tiled shapes) and the generic kernel's three stages (``generic_loop``) are
+held to the twin and to the Pallas kernel at the same bar (the ``cluster``
+kernel's loops: tests/test_torch_cluster.py). On the card every kernel
+variant (tiled, folded, generic, cluster) is held to it too.
 
 The cases marked ``cuda`` import no JAX, so that they also run where the
 GPU is and JAX is not (tests/conftest.py imports JAX, hence --noconftest):
@@ -43,20 +46,25 @@ CONN_LAMBDA2 = (36, 126, 14)         # 4-robot connectivity with the λ₂/CLF r
 # connectivity, the sweep's connectivity teams of 2 and 10, a 24-agent fov team
 RUN_SIM_CONN, TEAM24_FOV = (38, 128, 4), (59, 143, 276)
 SWEEP_R2, SWEEP_R10 = (37, 127, 2), (45, 135, 18)
-# fov teams of 40 and 64 agents (35 + N, 119 + N, 12 (N - 1)) and a 40-robot
-# connectivity team (35 + R, 125 + R, 2 R - 2): the generic kernel reads their
-# rows from device memory
+# the largest fov team the generic kernel holds (29 agents, (64, 148, 336): 16
+# warps of rows in registers); fov teams of 40 and 64 agents (35 + N, 119 + N,
+# 12 (N - 1)) and a 40-robot connectivity team (35 + R, 125 + R, 2 R - 2): the
+# cluster kernel's
+TEAM29_FOV = fused_admm.fov_team_shape(29)
 TEAM40_FOV, TEAM64_FOV, TEAM40_CONN = (75, 159, 468), (99, 183, 756), (75, 165, 78)
-# lanes larger than one SM (the cluster kernel): fov teams of 85, 96, 128 and
-# 256 agents, connectivity teams of 128 and 256 robots
+# lanes larger than one SM (the cluster kernel): fov teams of 85, 96, 128, 256
+# and 400 agents (the last two streamed from device memory, the 400-agent
+# lane's C too), connectivity teams of 128, 256 and 320 robots (the last
+# streamed, C too)
 TEAM85_FOV, TEAM96_FOV = fused_admm.fov_team_shape(85), fused_admm.fov_team_shape(96)
 TEAM128_FOV, TEAM256_FOV = fused_admm.fov_team_shape(128), fused_admm.fov_team_shape(256)
-TEAM128_CONN, TEAM256_CONN = (163, 253, 254), (291, 381, 510)
+TEAM400_FOV = fused_admm.fov_team_shape(400)
+TEAM128_CONN, TEAM256_CONN, TEAM320_CONN = (163, 253, 254), (291, 381, 510), (355, 445, 638)
 KW = dict(iters=40, sigma=1e-6, alpha=1.6)
 
 
-def _inputs(B, seed, shape=FOV):
-    return random_phase_inputs(np.random.default_rng(seed), B, *shape)
+def _inputs(B, seed, shape=FOV, operand=None):
+    return random_phase_inputs(np.random.default_rng(seed), B, *shape, operand=operand)
 
 
 @pytest.mark.parametrize("B,shape", [(5, FOV), (3, FOV), (4, CONN), (3, SWARM_CONN),
@@ -68,41 +76,21 @@ def test_twin_matches_pallas_kernel(B, shape):
 
     arrays = _inputs(B, seed=B, shape=shape)
     out_t = structured_admm_iterations_ref(*map(torch.from_numpy, arrays), **KW)
-    out_j = pallas(*map(jnp.asarray, arrays), **KW, block=128, interpret=True)
+    out_j = pallas(*map(jnp.asarray, _inputs(B, seed=B, shape=shape, operand="wk")), **KW,
+                   block=128, interpret=True)
     for name, t, j in zip(("x", "zs", "zd", "ys", "yd"), out_t, out_j):
         assert t.shape == j.shape and t.dtype == torch.float32
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=2e-4, atol=2e-4,
                                    err_msg=name)
 
 
-def folded_loop(Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, WK,
-                x0, zs0, zd0, ys0, yd0, *, iters, sigma, alpha):
-    """The loop as the ``folded`` kernel computes it, in plain PyTorch: the
-    twin's update order with the Woodbury solve S - WK (Ad S), S = Ms_inv
-    RHS, as one product xt = C RHS with the lane's float64
-    C = (I - WK Ad) Ms_inv [B, n, n], built once a phase. The same algebra,
-    without the float32 rounding of S and Ad S. It pins the algebra of the
-    kernel where there is no card."""
-    dt, hi = qb.dtype, torch.float64
-    Ms_inv_hi = Ms_inv.to(hi)
-    C = Ms_inv_hi - (WK.to(hi) @ Ad.to(hi)) @ Ms_inv_hi          # [B, n, n]
-    x, zs, zd, ys, yd = x0, zs0, zd0, ys0, yd0
-    for _ in range(iters):
-        rs = rho_s * zs - ys
-        rd = rho_d * zd - yd
-        RHS = sigma * x - qb + rs @ A_sb + torch.einsum("bdj,bd->bj", Ad, rd)
-        xt = torch.einsum("bij,bj->bi", C, RHS.to(hi)).to(dt)
-        zAs = xt @ A_sb.T
-        zAd = torch.einsum("bdj,bj->bd", Ad, xt)
-        x_new = alpha * xt + (1 - alpha) * x
-        zs_h = alpha * zAs + (1 - alpha) * zs + ys / rho_s
-        zd_h = alpha * zAd + (1 - alpha) * zd + yd / rho_d
-        zs_new = torch.clamp(zs_h, lbs, ubs)
-        zd_new = torch.clamp(zd_h, lbd, ubd)
-        ys = ys + rho_s * (alpha * zAs + (1 - alpha) * zs - zs_new)
-        yd = yd + rho_d * (alpha * zAd + (1 - alpha) * zd - zd_new)
-        x, zs, zd = x_new, zs_new, zd_new
-    return x, zs, zd, ys, yd
+#: the loop as the ``folded`` kernel computes it: the twin's update order with
+#: the x-update one product xt = C RHS in float64 from the lane's float64
+#: C = (M_s + Ad' R Ad)^-1, at any shape (the twin takes WK at the tiled
+#: kernel's shapes). It pins the algebra of the kernel where there is no card,
+#: and stands in for the twin where a kernel of the C form is launched by name
+#: at a tiled shape.
+folded_loop = fused_admm.folded_iterations_ref
 
 
 FOLDED_CASES = [(5, FOV), (4, CONN), (3, SWARM_CONN), (6, CONN_LAMBDA2), (2, SWARM_FOV)]
@@ -110,13 +98,15 @@ FOLDED_CASES = [(5, FOV), (4, CONN), (3, SWARM_CONN), (6, CONN_LAMBDA2), (2, SWA
 
 @pytest.mark.parametrize("B,shape", FOLDED_CASES)
 def test_folded_loop_matches_twin(B, shape):
-    """xt = C RHS with the lane's float64 C = (I - WK Ad) Ms_inv is the
-    twin's S - WK (Ad S): the algebra of the folded kernel, held to the bar of
-    two float32 loops (it differs from the twin by the float32 rounding of S
-    and Ad S that it skips)."""
-    arrays = [torch.from_numpy(a) for a in _inputs(B, seed=B, shape=shape)]
-    out_f = folded_loop(*arrays, **KW)
-    out_t = structured_admm_iterations_ref(*arrays, **KW)
+    """xt = C RHS with the lane's float64 C = (M_s + Ad' R Ad)^-1: the algebra
+    of the folded kernel, held to the bar of two float32 loops against the
+    twin of the shape (at the tiled shapes the Woodbury form S - WK (Ad S),
+    from which it differs by the float32 rounding of S and Ad S that it
+    skips)."""
+    out_f = folded_loop(*map(torch.from_numpy, _inputs(B, seed=B, shape=shape, operand="c")),
+                        **KW)
+    out_t = structured_admm_iterations_ref(*map(torch.from_numpy, _inputs(B, seed=B, shape=shape)),
+                                           **KW)
     for name, f, t in zip(("x", "zs", "zd", "ys", "yd"), out_f, out_t):
         assert f.shape == t.shape and f.dtype == torch.float32
         torch.testing.assert_close(f, t, rtol=2e-4, atol=2e-4, msg=lambda m: f"{name}: {m}")
@@ -128,9 +118,10 @@ def test_folded_loop_matches_pallas_kernel(B, shape):
     mode) on the same inputs, at the bar the twin is held to."""
     import jax.numpy as jnp
     from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
-    arrays = _inputs(B, seed=B, shape=shape)
-    out_f = folded_loop(*[torch.from_numpy(a) for a in arrays], **KW)
-    out_p = pallas(*[jnp.asarray(a) for a in arrays], interpret=True, block=128, **KW)
+    out_f = folded_loop(*map(torch.from_numpy, _inputs(B, seed=B, shape=shape, operand="c")),
+                        **KW)
+    out_p = pallas(*map(jnp.asarray, _inputs(B, seed=B, shape=shape, operand="wk")),
+                   interpret=True, block=128, **KW)
     for name, f, p in zip(("x", "zs", "zd", "ys", "yd"), out_f, out_p):
         np.testing.assert_allclose(f.numpy(), np.asarray(p), rtol=2e-4, atol=2e-4, err_msg=name)
 
@@ -139,29 +130,24 @@ def generic_warps(n, m, rows_a_warp=32, threads_a_row=4):
     """Warps of a block of the generic kernel (csrc/structured_admm_generic.cu,
     ``generic_warps``): enough for the rows, 32 a warp, and for four threads
     on each row of C, at most 8 at the RegN64 line (n <= 64, m <= 256) and
-    16 at RegN64Tall and FromMemory."""
+    16 at RegN64Tall."""
     max_warps = 8 if n <= 64 and m <= 256 else 16
     return min(max_warps, max(-(-m // rows_a_warp), -(-threads_a_row * n // 32)))
 
 
-def generic_loop(Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, WK,
+def generic_loop(Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, C,
                  x0, zs0, zd0, ys0, yd0, *, iters, sigma, alpha):
-    """The loop as the ``generic`` kernel computes it, in plain PyTorch: the
-    lane's float64 C = Ms_inv - WK (Ad Ms_inv) built once a phase, 32 rows of
-    Ad at a time as the kernel's prologue sums it, then the
-    kernel's stages an iteration. 1: the rows of [A_s; A_d] split into the
-    kernel's warps, each warp's column sums of r over its rows; 2: RHS =
-    sigma x - q + the warps' partial sums, in the warps' order; 3: xt = C RHS
-    in float64; 4: the rows of [A_s; A_d] xt and the row updates. It pins the
-    kernel's algebra and its order of summation across warps where there is
-    no card."""
+    """The loop as the ``generic`` kernel computes it, in plain PyTorch, from
+    the lane's float64 C [B, n, n]: the kernel's stages an iteration. 1: the
+    rows of [A_s; A_d] split into the kernel's warps, each warp's column sums
+    of r over its rows; 2: RHS = sigma x - q + the warps' partial sums, in the
+    warps' order; 3: xt = C RHS in float64; 4: the rows of [A_s; A_d] xt and
+    the row updates. It pins the kernel's algebra and its order of summation
+    across warps where there is no card."""
     dt, hi = qb.dtype, torch.float64
     B, n = qb.shape
     m_s = A_sb.shape[0]
-    Ms_inv_hi = Ms_inv.to(hi)
-    C = Ms_inv_hi.expand(B, -1, -1)                               # [B, n, n]
-    for k0 in range(0, Ad.shape[1], 32):
-        C = C - WK[:, :, k0:k0 + 32].to(hi) @ (Ad[:, k0:k0 + 32].to(hi) @ Ms_inv_hi)
+    C = C.to(hi)
     A = torch.cat([A_sb.expand(B, -1, -1), Ad], 1)                # [B, m, n]
     m = A.shape[1]
     rw = -(-m // generic_warps(n, m))                             # rows a warp
@@ -185,17 +171,19 @@ def generic_loop(Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, WK,
 
 
 GENERIC_CASES = FOLDED_CASES + [(3, RUN_SIM_CONN), (4, SWEEP_R2), (3, SWEEP_R10),
-                                (2, TEAM24_FOV), (2, TEAM40_CONN)]
+                                (2, TEAM24_FOV), (2, TEAM29_FOV)]
 
 
 @pytest.mark.parametrize("B,shape", GENERIC_CASES)
 def test_generic_loop_matches_twin(B, shape):
     """The generic kernel's three stages against the twin, at the bar of two
-    float32 loops (they differ by the float32 rounding of S and Ad S that the
-    folded form skips, and by the order of the column sums)."""
-    arrays = [torch.from_numpy(a) for a in _inputs(B, seed=B, shape=shape)]
-    out_g = generic_loop(*arrays, **KW)
-    out_t = structured_admm_iterations_ref(*arrays, **KW)
+    float32 loops (they differ by the order of the column sums and, at the
+    tiled shapes, by the float32 rounding of S and Ad S that the C form
+    skips)."""
+    out_g = generic_loop(*map(torch.from_numpy, _inputs(B, seed=B, shape=shape, operand="c")),
+                         **KW)
+    out_t = structured_admm_iterations_ref(*map(torch.from_numpy, _inputs(B, seed=B, shape=shape)),
+                                           **KW)
     for name, g, t in zip(("x", "zs", "zd", "ys", "yd"), out_g, out_t):
         assert g.shape == t.shape and g.dtype == torch.float32
         torch.testing.assert_close(g, t, rtol=2e-4, atol=2e-4, msg=lambda m: f"{name}: {m}")
@@ -207,9 +195,10 @@ def test_generic_loop_matches_pallas_kernel(B, shape):
     (interpret mode) on the same inputs, at the bar the twin is held to."""
     import jax.numpy as jnp
     from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
-    arrays = _inputs(B, seed=B, shape=shape)
-    out_g = generic_loop(*[torch.from_numpy(a) for a in arrays], **KW)
-    out_p = pallas(*[jnp.asarray(a) for a in arrays], interpret=True, block=128, **KW)
+    out_g = generic_loop(*map(torch.from_numpy, _inputs(B, seed=B, shape=shape, operand="c")),
+                         **KW)
+    out_p = pallas(*map(jnp.asarray, _inputs(B, seed=B, shape=shape, operand="wk")),
+                   interpret=True, block=128, **KW)
     for name, g, p in zip(("x", "zs", "zd", "ys", "yd"), out_g, out_p):
         np.testing.assert_allclose(g.numpy(), np.asarray(p), rtol=2e-4, atol=2e-4, err_msg=name)
 
@@ -279,17 +268,21 @@ def _need_gpu():
     (SWEEP_R2, 30, "generic"),       # the sweep's teams of 2 and 10 at 15 R lanes
     (SWEEP_R10, 150, "generic"),
     (TEAM24_FOV, 16, "generic"),     # the 24-agent fov team: registers too, one block an SM
-    (TEAM40_FOV, 16, "generic"),     # rows from device memory (FromMemory)
-    (TEAM64_FOV, 8, "generic"),
-    (TEAM40_CONN, 16, "generic"),
-    ((162, 2, 2), 3, "cluster"),     # n above every generic layout: a lane on several SMs
+    (TEAM29_FOV, 16, "generic"),     # the largest fov team generic holds
+    (TEAM40_FOV, 16, "cluster"),     # past generic's registers: a lane on 2 or 4 SMs, rows on chip
+    (TEAM64_FOV, 8, "cluster"),
+    (TEAM40_CONN, 16, "cluster"),
+    ((162, 2, 2), 3, "cluster"),     # n above every generic layout
     ((165, 4, 4), 3, "cluster"),
     (TEAM85_FOV, 3, "cluster"),      # the first fov team past FromMemory: rows on chip
     (TEAM96_FOV, 3, "cluster"),
     (TEAM128_FOV, 2, "cluster"),
-    (TEAM256_FOV, 2, "cluster"),     # rows read from device memory
+    (fused_admm.fov_team_shape(160), 2, "cluster"),   # rows and C streamed
+    (TEAM256_FOV, 2, "cluster"),
+    (TEAM400_FOV, 2, "cluster"),
     (TEAM128_CONN, 9, "cluster"),
     (TEAM256_CONN, 3, "cluster"),
+    (TEAM320_CONN, 3, "cluster"),    # rows and C streamed
 ])
 def test_kernel_matches_twin_on_gpu(shape, B, took):
     """The kernel each shape takes against the twin on the card; same bar as
@@ -310,23 +303,21 @@ def test_kernel_matches_twin_on_gpu(shape, B, took):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant,shape,B", [("generic", FOV, 100), ("generic", SWARM_CONN, 64),
-                                             ("generic", SWARM_FOV, 16),   # A_d from memory
                                              ("cluster", FOV, 100), ("cluster", SWARM_CONN, 64),
                                              ("cluster", SWARM_FOV, 16),
                                              ("cluster", RUN_SIM_CONN, 3),
                                              ("cluster", TEAM64_FOV, 8)])
 def test_generic_kernels_take_the_fov_shapes_on_gpu(variant, shape, B):
     """The kernels that take runtime shapes, launched by name against the
-    twin at shapes the wrapper gives to another kernel: generic at the fov
-    shapes and the 32-agent shapes (the 32-agent fov lane exceeds the
-    registers and reads A_d from device memory), cluster at those and at
-    run_sim's 3-robot team and the 64-agent fov team (generic's FromMemory
-    runs it through the wrapper)."""
+    plain C-form loop at shapes the wrapper gives to another kernel: generic
+    at the fov flagship and the 32-agent connectivity shapes, cluster at
+    those, at the 32-agent fov shapes and at run_sim's 3-robot team; and
+    cluster at the 64-agent fov team, its own."""
     _need_gpu()
-    arrays = [torch.from_numpy(a).cuda() for a in _inputs(B, seed=21, shape=shape)]
+    arrays = [torch.from_numpy(a).cuda() for a in _inputs(B, seed=21, shape=shape, operand="c")]
     before = structured_admm_iterations.launches
     out_k = fused_admm.launch_variant(fused_admm._lib(), variant, arrays, **KW)
-    out_t = structured_admm_iterations_ref(*arrays, **KW)
+    out_t = folded_loop(*arrays, **KW)
     torch.cuda.synchronize()
     assert structured_admm_iterations.launches == before     # only the wrapper counts
     for a, b in zip(out_k, out_t):
@@ -334,7 +325,8 @@ def test_generic_kernels_take_the_fov_shapes_on_gpu(variant, shape, B):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [FOV, CONN, CONN_LAMBDA2, SWARM_CONN, SWEEP_R10, TEAM128_CONN])
+@pytest.mark.parametrize("shape", [FOV, CONN, CONN_LAMBDA2, SWARM_CONN, SWEEP_R10, TEAM128_CONN,
+                                   TEAM256_FOV])
 def test_nan_lane_leaves_its_block_untouched_on_gpu(shape):
     """The tiled kernel runs several lanes in one block, the folded and
     generic kernels several blocks on one SM, the cluster kernel a lane on
@@ -354,38 +346,42 @@ def test_nan_lane_leaves_its_block_untouched_on_gpu(shape):
 
 @pytest.mark.cuda
 def test_every_team_takes_a_redesigned_kernel_on_gpu():
-    """Every fov team of 2 to 256 agents and every connectivity team of 2 to
-    256 robots takes tiled, folded, generic or cluster: every team to 84
-    agents and 89 robots one of the first three, the larger ones cluster."""
+    """Every fov team of 2 to 512 agents and every connectivity team of 2 to
+    512 robots takes tiled, folded, generic or cluster: every team to 29
+    agents or robots one of the first three, the larger ones cluster (but the
+    32-agent fov team, folded's); the tiled kernel exactly the shapes that
+    take WK."""
     _need_gpu()
     lib = fused_admm._lib()
-    fov = {A: fused_admm.fov_team_shape(A) for A in range(2, 257)}
-    conn = {R: (35 + R, 125 + R, 2 * R - 2) for R in range(2, 257)}
-    for teams, last_in_a_block in ((fov, 84), (conn, 89)):
+    fov = {A: fused_admm.fov_team_shape(A) for A in range(2, 513)}
+    conn = {R: (35 + R, 125 + R, 2 * R - 2) for R in range(2, 513)}
+    for teams in (fov, conn):
         codes = {size: lib.structured_admm_variant(*s) for size, s in teams.items()}
         assert min(codes.values()) >= 0
         took = {size: VARIANTS[c] for size, c in codes.items()}
         assert {size: v for size, v in took.items()
-                if (v == "cluster") != (size > last_in_a_block)} == {}
+                if (v == "cluster") != (size > 29 and v != "folded")} == {}
+        assert [size for size, v in took.items() if v == "folded"] == ([32] if teams is fov else [])
+        assert {size for size, v in took.items() if v == "tiled"} == \
+            {size for size, s in teams.items() if fused_admm.takes_wk(*s)}
 
 
 @pytest.mark.cuda
-def test_shape_beyond_every_kernel_raises_on_gpu():
-    """A lane whose float64 matrix (n = 420: 1.41 MB) exceeds the shared
-    memory of a cluster of 8 blocks has no kernel: the wrapper raises before
-    launching, names the largest fov team a kernel holds (the next team
-    raises, that one does not), and the twin does not stand in."""
+@pytest.mark.parametrize("shape,B", [((420, 10, 2), 3),             # C of 1.41 MB: 8 blocks on chip
+                                     (fused_admm.fov_team_shape(512), 1)])  # rows and C streamed
+def test_shapes_past_the_old_limit_launch_cluster_on_gpu(shape, B):
+    """A lane whose float64 C exceeded what the first cluster layouts held
+    beside their staging (n = 420) and a 512-agent fov lane (547, 631, 6132)
+    launch the cluster kernel and agree with the twin."""
     _need_gpu()
-    lib = fused_admm._lib()
-    A = fused_admm.largest_fov_team(lib)
-    assert lib.structured_admm_variant(*fused_admm.fov_team_shape(A)) == VARIANTS.index("cluster")
-    assert lib.structured_admm_variant(*fused_admm.fov_team_shape(A + 1)) == -1
-    arrays = [torch.from_numpy(a).cuda() for a in _inputs(1, seed=24, shape=(420, 10, 2))]
-    before = structured_admm_iterations.launches
-    with pytest.raises(ValueError, match=f"no kernel holds the shape.*largest fov team a kernel "
-                                         f"holds is {A} agents"):
-        structured_admm_iterations(*arrays, **KW)
-    assert structured_admm_iterations.launches == before
+    arrays = [torch.from_numpy(a).cuda() for a in _inputs(B, seed=24, shape=shape)]
+    before = structured_admm_iterations.launches_by_variant["cluster"]
+    out_k = structured_admm_iterations(*arrays, **dict(KW, iters=10))
+    out_t = structured_admm_iterations_ref(*arrays, **dict(KW, iters=10))
+    torch.cuda.synchronize()
+    assert structured_admm_iterations.launches_by_variant["cluster"] == before + 1
+    for a, b in zip(out_k, out_t):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.cuda

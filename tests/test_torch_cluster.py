@@ -2,19 +2,24 @@
 one lane a thread-block cluster) where there is no card, and the slice at
 the team sizes that take it.
 
-``cluster_loop`` is the loop as the kernel computes it, in plain PyTorch:
-the lane's float64 C = Ms_inv - (WK A_d) Ms_inv, WK A_d summed 64 rows of A_d
-at a time as the prologue stages them where it has the room; the rows of [A_s; A_d] split over the
-cs blocks of the cluster as the kernel splits them, each block's rows in
-chunks of 32 over its warps; the column sums of [A_s; A_d]'r met as the
-kernel meets them (each warp's chunks, then the block's warps in order, then
-the blocks in rank order); xt = C RHS in float64; [A_s; A_d] xt and the row
-updates in float32. It is held against the twin and against the JAX
-package's Pallas kernel in interpret mode at shapes with n above 160 (the
-kernel's, past every one-block layout) to rtol = atol = 2e-4, the bar of
-tests/test_pallas_admm.py:53-55 between two float32 loops that sum in
-another order. On the card tests/test_torch_admm_kernel.py holds the kernel
-itself to the twin.
+``cluster_loop`` is the loop as the kernel's on-chip layout computes it, in
+plain PyTorch: xt = C RHS in float64 with the lane's C, the operand the
+caller factors; the rows of [A_s; A_d] split over the cs blocks of the
+cluster as the kernel splits them, each block's rows in chunks of 32 over
+its warps; the column sums of [A_s; A_d]'r met as the kernel meets them
+(each warp's chunks, then the block's warps in order, then the blocks in
+rank order); [A_s; A_d] xt and the row updates in float32. ``stream_loop``
+is the streamed layout's (rows read from device memory once an iteration):
+the same loop with each block's rows in chunks of 4, those of A_s first,
+chunk i to warp i % nw, the column sums of the next iteration formed in the
+same pass as the row updates (the first from the initial state), and the
+row and column sums and RHS met in float64. Both
+are held against the twin and against the JAX package's Pallas kernel in
+interpret mode, at shapes with n above 160 (the kernel's, past every
+one-block layout) and at a 400-agent fov team's, to rtol = atol = 2e-4, the
+bar of tests/test_pallas_admm.py:53-55 between two float32 loops that sum
+in another order. On the card tests/test_torch_admm_kernel.py holds the
+kernel itself to the twin.
 
 The slice test runs StructuredIMPC.optimize_batch of both packages on the
 CPU through their plain loops on a ring of 85 fov agents, the first team
@@ -34,7 +39,6 @@ from mpc_cbf_torch.ops.qp.fused_admm import random_phase_inputs, structured_admm
 from torch_parity_cases import one_torch_thread  # noqa: F401  (autouse)
 
 KW = dict(iters=40, sigma=1e-6, alpha=1.6)
-KC = 64                                   # rows of A_d the prologue stages at a time
 
 
 def part_start(count, cs, k):
@@ -44,48 +48,69 @@ def part_start(count, cs, k):
 
 
 def block_warps(m, cs):
-    """Warps a block of the cluster kernel: one a chunk of 32 of the most rows
+    """Warps a block of the on-chip layout: one a chunk of 32 of the most rows
     a block holds, 4 to 16."""
     rows = -(-m // cs)
     return min(16, max(4, -(-rows // 32)))
 
 
-def cluster_loop(Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, WK,
-                 x0, zs0, zd0, ys0, yd0, *, iters, sigma, alpha, cs):
-    """The loop as the ``cluster`` kernel computes it with cs blocks a lane
-    (module docstring)."""
-    dt, hi = qb.dtype, torch.float64
-    B, n = qb.shape
-    m_s, m_d = A_sb.shape[0], Ad.shape[1]
-    m = m_s + m_d
-    Mi = Ms_inv.to(hi)
-    H = torch.zeros(B, n, n, dtype=hi)
-    for k0 in range(0, m_d, KC):
-        H = H + WK[:, :, k0:k0 + KC].to(hi) @ Ad[:, k0:k0 + KC].to(hi)
-    C = Mi - H @ Mi                                               # [B, n, n]
-    A = torch.cat([A_sb.expand(B, -1, -1), Ad], 1)                # [B, m, n]
+def chip_groups(m, m_s, cs):
+    """The rows of each warp of each block of the on-chip layout: chunk ch of
+    block k's rows (32 rows a chunk) goes to warp ch % nw."""
     nw = block_warps(m, cs)
-    # the rows of each warp of each block: chunk ch of block k's rows goes to warp ch % nw
     groups = []
     for k in range(cs):
         rb, re = part_start(m, cs, k), part_start(m, cs, k + 1)
         chunks = [torch.arange(c, min(c + 32, re)) for c in range(rb, re, 32)]
         groups.append([torch.cat(chunks[w::nw]) if chunks[w::nw] else torch.arange(0)
                        for w in range(nw)])
+    return groups
+
+
+def stream_chunks(m, m_s, cs, rows_a_chunk=4):
+    """The chunks of each block of the streamed layout: block k's rows of
+    A_s, then its rows of A_d, each in chunks of 4."""
+    out = []
+    for k in range(cs):
+        rb, re = part_start(m, cs, k), part_start(m, cs, k + 1)
+        mid = min(max(m_s, rb), re)
+        out.append([torch.arange(c, min(c + rows_a_chunk, e))
+                    for b, e in ((rb, mid), (mid, re)) for c in range(b, e, rows_a_chunk)])
+    return out
+
+
+def stream_groups(m, m_s, cs, nw):
+    """The rows of each warp of each block of the streamed layout: chunk i of
+    a block goes to warp i % nw."""
+    return [[torch.cat(chunks[w::nw]) if chunks[w::nw] else torch.arange(0) for w in range(nw)]
+            for chunks in stream_chunks(m, m_s, cs)]
+
+
+def _cluster_model(groups, Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, C,
+                   x0, zs0, zd0, ys0, yd0, *, iters, sigma, alpha, sums=None):
+    """The loop of a cluster layout whose warps hold the rows ``groups``
+    [block][warp] (module docstring); C [B, n, n] float64. ``sums``: the dtype
+    the row and column sums and RHS accumulate in (None: the state's)."""
+    dt, hi = qb.dtype, torch.float64
+    acc = sums or dt
+    B, n = qb.shape
+    m_s = A_sb.shape[0]
+    A = torch.cat([A_sb.expand(B, -1, -1), Ad], 1)                # [B, m, n]
     lo, up = torch.cat([lbs, lbd], 1), torch.cat([ubs, ubd], 1)
     rho = torch.cat([rho_s.expand(B, -1), rho_d], 1)
     x, z, y = x0, torch.cat([zs0, zd0], 1), torch.cat([ys0, yd0], 1)
+    Aa = A.to(acc)
     for _ in range(iters):
         r = rho * z - y
-        s = torch.zeros(B, n, dtype=dt)
+        s = torch.zeros(B, n, dtype=acc)
         for warps in groups:                                      # the blocks in rank order
-            block = torch.zeros(B, n, dtype=dt)
+            block = torch.zeros(B, n, dtype=acc)
             for rows in warps:                                    # the block's warps in order
-                block = block + torch.einsum("bij,bi->bj", A[:, rows], r[:, rows])
+                block = block + torch.einsum("bij,bi->bj", Aa[:, rows], r[:, rows].to(acc))
             s = s + block
-        RHS = sigma * x - qb + s
-        xt = torch.einsum("bij,bj->bi", C, RHS.to(hi)).to(dt)
-        zA = torch.einsum("bij,bj->bi", A, xt)
+        RHS = (sigma * x - qb).to(acc) + s
+        xt = torch.einsum("bij,bj->bi", C.to(hi), RHS.to(hi)).to(dt)
+        zA = torch.einsum("bij,bj->bi", Aa, xt.to(acc)).to(dt)
         x = alpha * xt + (1 - alpha) * x
         zr = alpha * zA + (1 - alpha) * z
         zn = torch.clamp(zr + y / rho, lo, up)
@@ -94,23 +119,47 @@ def cluster_loop(Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, WK,
     return x, z[:, :m_s], z[:, m_s:], y[:, :m_s], y[:, m_s:]
 
 
+def cluster_loop(*args, iters, sigma, alpha, cs):
+    """The loop as the ``cluster`` kernel computes it with its rows on chip,
+    cs blocks a lane (module docstring)."""
+    m_s, m = args[1].shape[0], args[1].shape[0] + args[6].shape[1]
+    return _cluster_model(chip_groups(m, m_s, cs), *args, iters=iters, sigma=sigma, alpha=alpha)
+
+
+def stream_loop(*args, iters, sigma, alpha, cs, nw):
+    """The loop as the ``cluster`` kernel computes it with its rows streamed
+    from device memory, cs blocks of nw warps a lane (module docstring); its
+    row and column sums and RHS meet in float64 (the kernel's partial sums of
+    a lane's columns and of a chunk's rows stay float32: a rounding apart)."""
+    m_s, m = args[1].shape[0], args[1].shape[0] + args[6].shape[1]
+    return _cluster_model(stream_groups(m, m_s, cs, nw), *args, iters=iters, sigma=sigma,
+                          alpha=alpha, sums=torch.float64)
+
+
 # (lanes, shape, blocks a lane, iterations): a 128-robot connectivity team and a
 # synthetic shape with few rows at the cluster sizes the kernel gives them; a
 # 128-agent fov team (163, 247, 1524) on one lane for a short phase
 CASES = [(2, (163, 253, 254), 4, 40), (3, (170, 20, 12), 2, 40), (2, (170, 20, 12), 8, 40),
          (1, fused_admm.fov_team_shape(128), 8, 8)]
+# (lanes, shape, blocks, warps a block, iterations) of the streamed layout: a
+# 256-robot connectivity team (its rows straddle A_s's last row inside a
+# block), a 400-agent fov team (435, 519, 4788) on one lane for a short phase,
+# synthetic shapes with fewer rows than warps in some blocks, and a 160-agent
+# fov team (195, 279, 1908); the fov teams on the 4 warps the kernel gives them
+STREAM_CASES = [(2, (291, 381, 510), 8, 8, 40), (1, fused_admm.fov_team_shape(400), 8, 4, 6),
+                (2, (180, 30, 9), 8, 8, 40), (2, (200, 21, 40), 4, 4, 40),
+                (2, fused_admm.fov_team_shape(160), 8, 4, 10)]
 
 
 @functools.lru_cache(maxsize=None)
-def _inputs(B, shape):
-    return random_phase_inputs(np.random.default_rng(B), B, *shape)
+def _inputs(B, shape, operand=None):
+    return random_phase_inputs(np.random.default_rng(B), B, *shape, operand=operand)
 
 
 @pytest.mark.parametrize("B,shape,cs,iters", CASES)
 def test_cluster_loop_matches_twin(B, shape, cs, iters):
     """The cluster kernel's loop against the twin, at the bar of two float32
-    loops (they differ by the float32 rounding of S and Ad S that the folded
-    form skips, and by the order of the column sums)."""
+    loops (they differ by the order of the column sums)."""
     arrays = [torch.from_numpy(a) for a in _inputs(B, shape)]
     kw = dict(KW, iters=iters)
     out_c = cluster_loop(*arrays, **kw, cs=cs)
@@ -123,15 +172,45 @@ def test_cluster_loop_matches_twin(B, shape, cs, iters):
 @pytest.mark.parametrize("B,shape,cs,iters", CASES)
 def test_cluster_loop_matches_pallas_kernel(B, shape, cs, iters):
     """The cluster kernel's loop against the JAX package's kernel itself
-    (interpret mode) on the same inputs, at the bar the twin is held to."""
+    (interpret mode, with the Woodbury WK of the same draw) on the same
+    inputs, at the bar the twin is held to."""
     import jax.numpy as jnp
     from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
-    arrays = _inputs(B, shape)
     kw = dict(KW, iters=iters)
-    out_c = cluster_loop(*[torch.from_numpy(a) for a in arrays], **kw, cs=cs)
-    out_p = pallas(*[jnp.asarray(a) for a in arrays], interpret=True, block=128, **kw)
+    out_c = cluster_loop(*[torch.from_numpy(a) for a in _inputs(B, shape)], **kw, cs=cs)
+    out_p = pallas(*[jnp.asarray(a) for a in _inputs(B, shape, "wk")], interpret=True,
+                   block=128, **kw)
     for name, c, p in zip(("x", "zs", "zd", "ys", "yd"), out_c, out_p):
         np.testing.assert_allclose(c.numpy(), np.asarray(p), rtol=2e-4, atol=2e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("B,shape,cs,nw,iters", STREAM_CASES)
+def test_stream_loop_matches_twin(B, shape, cs, nw, iters):
+    """The streamed layout's one-pass loop against the twin, at the bar of two
+    float32 loops."""
+    arrays = [torch.from_numpy(a) for a in _inputs(B, shape)]
+    kw = dict(KW, iters=iters)
+    out_s = stream_loop(*arrays, **kw, cs=cs, nw=nw)
+    out_t = structured_admm_iterations_ref(*arrays, **kw)
+    for name, s, t in zip(("x", "zs", "zd", "ys", "yd"), out_s, out_t):
+        assert s.shape == t.shape and s.dtype == torch.float32
+        torch.testing.assert_close(s, t, rtol=2e-4, atol=2e-4, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("B,shape,cs,nw,iters", STREAM_CASES[:1] + STREAM_CASES[2:])
+def test_stream_loop_matches_pallas_kernel(B, shape, cs, nw, iters):
+    """The streamed layout's loop against the JAX package's kernel (interpret
+    mode, WK of the same draw), at the bar the twin is held to. (The
+    400-agent lane is held to the twin only: its Woodbury WK is an inverse
+    of [4788, 4788].)"""
+    import jax.numpy as jnp
+    from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
+    kw = dict(KW, iters=iters)
+    out_s = stream_loop(*[torch.from_numpy(a) for a in _inputs(B, shape)], **kw, cs=cs, nw=nw)
+    out_p = pallas(*[jnp.asarray(a) for a in _inputs(B, shape, "wk")], interpret=True,
+                   block=128, **kw)
+    for name, s, p in zip(("x", "zs", "zd", "ys", "yd"), out_s, out_p):
+        np.testing.assert_allclose(s.numpy(), np.asarray(p), rtol=2e-4, atol=2e-4, err_msg=name)
 
 
 @pytest.mark.parametrize("m,cs", [(1771, 8), (507, 4), (32, 2), (3435, 4), (163, 8)])
@@ -144,22 +223,15 @@ def test_the_blocks_split_the_rows(m, cs):
     assert sizes.min() >= 1 and sizes.max() - sizes.min() <= 1
 
 
-class _Lib:
-    """A kernel library whose kernels hold n <= n_max."""
-
-    def __init__(self, n_max):
-        self.n_max = n_max
-
-    def structured_admm_variant(self, n, m_s, m_d):
-        return 3 if n <= self.n_max else -1
-
-
-@pytest.mark.parametrize("n_max,team", [(416, 381), (120, 85), (37, 2)])
-def test_largest_fov_team_is_where_the_kernels_stop(n_max, team):
-    """largest_fov_team walks the fov family (35 + A, 119 + A, 12 (A - 1))
-    to the last team the library's kernels hold (the raise names it)."""
-    assert fused_admm.largest_fov_team(_Lib(n_max)) == team
-    assert fused_admm.fov_team_shape(team)[0] <= n_max < fused_admm.fov_team_shape(team + 1)[0]
+@pytest.mark.parametrize("m,m_s,cs,nw", [(891, 381, 8, 8), (5307, 519, 8, 8), (39, 30, 8, 8)])
+def test_the_streamed_warps_take_every_row_once(m, m_s, cs, nw):
+    """The streamed layout's chunks cover the rows once, none straddles A_s's
+    last row, and the warps of a block take them all."""
+    chunks = [c for block in stream_chunks(m, m_s, cs) for c in block]
+    assert torch.equal(torch.cat(chunks), torch.arange(m))
+    assert all(len(c) <= 4 and ((c < m_s).all() or (c >= m_s).all()) for c in chunks)
+    rows = torch.cat([w for warps in stream_groups(m, m_s, cs, nw) for w in warps])
+    assert torch.equal(rows.sort().values, torch.arange(m))
 
 
 RING = 85          # the first fov team past generic's largest layout

@@ -82,20 +82,23 @@ def test_chunked_solve_equals_unchunked_bitwise(warm):
         assert a.shape == b.shape and torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("m_d,cfg_chunk,itemsize,B,expected", [
-    (84, None, 4, 32768, 0),       # auto: off below m_d = 128
-    (372, None, 4, 32768, 2048),   # auto: 8 GB over 4 x 4 x 372^2 bytes a lane -> 2^11
-    (372, None, 8, 32768, 1024),   # float64 halves it
-    (372, None, 4, 2048, 0),       # the batch fits one chunk
-    (372, None, 4, 2049, 2048),    # a remainder does not turn it off
-    (372, 0, 4, 32768, 0),         # 0 = off
-    (84, 4, 4, 10, 4),             # k = k lanes, whatever m_d
-    (84, 4, 4, 4, 0),              # B <= k: off
+@pytest.mark.parametrize("n,m_d,cfg_chunk,B,expected", [
+    (43, 84, None, 32768, 0),       # auto: off below m_d = 128
+    (67, 372, None, 32768, 16384),  # auto: 8 GB over 8 (372 67 + 4 67^2) bytes a lane -> 2^14
+    (163, 1524, None, 32768, 2048),  # the 128-agent fov lane: 2.8 MB -> 2^11
+    (435, 4788, None, 400, 256),    # the 400-agent fov lane (23 MB): at least 256
+    (163, 1524, None, 2048, 0),     # the batch fits one chunk
+    (163, 1524, None, 2049, 2048),  # a remainder does not turn it off
+    (67, 372, 0, 32768, 0),         # 0 = off
+    (43, 84, 4, 10, 4),             # k = k lanes, whatever m_d
+    (43, 84, 4, 4, 0),              # B <= k: off
 ])
-def test_lane_chunk_rule(m_d, cfg_chunk, itemsize, B, expected):
+def test_lane_chunk_rule(n, m_d, cfg_chunk, B, expected):
+    """The auto lane_chunk counts the C form's float64 tensors a lane (a copy
+    of A_d and four [n, n]), whatever the solve's dtype."""
     op = StructuredQPOperator.__new__(StructuredQPOperator)
-    op.m_d, op.cfg = m_d, StructuredConfig(lane_chunk=cfg_chunk)
-    assert op._lane_chunk(B, itemsize) == expected
+    op.n, op.m_d, op.cfg = n, m_d, StructuredConfig(lane_chunk=cfg_chunk)
+    assert op._lane_chunk(B) == expected
 
 
 def test_chunked_control_step_matches_jax():
@@ -115,7 +118,7 @@ def test_chunked_control_step_matches_jax():
 
     simpc_t = tc.StructuredIMPC(_torch_ctrl(torch.float64),
                                 StructuredConfig(iters=100, lane_chunk=4))
-    assert simpc_t.op_qp._lane_chunk(B, 8) == 4
+    assert simpc_t.op_qp._lane_chunk(B) == 4
     convert.set_structured_constants(simpc_t.op_qp, **_jax_constants(simpc_j.op_qp))
     res_t = _torch_step(simpc_t, inputs, torch.float64)
     np.testing.assert_allclose(res_t.coeffs.numpy(), np.asarray(res_j.coeffs),

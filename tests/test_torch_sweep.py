@@ -70,3 +70,7 @@ def test_main_refuses_a_missing_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         sweep.main(["--base", BASE, "--sizes", "2"])
+
+
+def test_run_size_is_run_cell_as_in_the_jax_package():
+    assert sweep.run_size is sweep.run_cell and jsweep.run_size is jsweep.run_cell
