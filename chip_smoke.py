@@ -6,7 +6,8 @@ Run from the root of a checkout on a machine with a CUDA GPU (built for
 sm_90a: an H100). It
 1. prints the card (nvidia-smi name and power limit);
 2. builds the CUDA kernels from csrc/ into build/kernels/ (one nvcc per
-   source, started together) and times it;
+   source, started together) and times it; fails if ptxas reports a spill
+   in an instance of the cluster kernel's register layout;
 3. holds every variant of the fused ADMM kernel against its plain PyTorch
    twin at 40 iterations to rtol = atol = 2e-4, each through the wrapper at
    a shape that takes it: tiled at the fov, connectivity and λ₂/CLF
@@ -20,11 +21,12 @@ sm_90a: an H100). It
    (step 21; R = 10 also for a 150-iteration phase) and at the 24-agent fov
    shapes (59, 143, 276) on 64 lanes; generic also launched by name at the
    fov flagship and the 32-agent connectivity shapes; cluster (one lane a
-   thread-block cluster) at the fov teams of 40, 64, 96, 128 (also for
-   the step's 550-iteration phase), 160, 256 (rows and C streamed from
-   device memory; also a 256-lane chunk for 550 iterations) and 400 agents
-   (also for 550 iterations), the connectivity teams of 128, 256
-   (also for 550 iterations), 40 and 320 robots, two synthetic shapes past
+   thread-block cluster) at the fov teams of 40, 64, 96, 128 (the rows in
+   registers; each also for the step's 550-iteration phase), 160, 256 (rows
+   and C streamed from device memory; also a 256-lane chunk for 550
+   iterations) and 400 agents (also for 550 iterations), the connectivity
+   teams of 128, 256 (rows in registers, also for 550 iterations), 40 and
+   320 robots, two synthetic shapes past
    every one-block layout (n = 162 and 165), and by name at the 32-agent fov
    shapes; every kernel but tiled takes the lane's float64 C, which the
    caller factors; a NaN lane that must leave every other lane bitwise
@@ -52,7 +54,7 @@ sm_90a: an H100). It
    bytes, from the shapes and the card's peaks; the operations are the
    fewest a known form of the loop needs, see bound()), and the
    microseconds and clocks of one iteration (at the SM clock nvidia-smi
-   reads after the window; the log adds the block-wide barriers the source
+   reads after the window; the log adds the barriers an iteration the source
    writes);
 5. drives the main path (StructuredIMPC(FovIMPCCBF) with the structured
    ADMM (iters 200, tail 64) on 8192 lanes of bench.py's fov recipe),
@@ -303,7 +305,7 @@ RUN_SIM_CONN_SHAPES = dict(n=38, m_s=128, m_d=4)  # run_sim connectivity, 3 robo
 TEAM24_FOV_SHAPES = dict(n=59, m_s=143, m_d=276)  # 24-agent fov
 # fov teams of 40 and 64 agents and a 40-robot connectivity team: past the
 # generic kernel's registers, the cluster kernel's (2 and 4 blocks a lane, rows
-# on chip). The fov steps run 19 rings of 40 (760 lanes) and 8 rings of 64
+# in registers). The fov steps run 19 rings of 40 (760 lanes) and 8 rings of 64
 # (512 lanes), one lane chunk each
 TEAM40_FOV_SHAPES = dict(n=75, m_s=159, m_d=468)
 TEAM64_FOV_SHAPES = dict(n=99, m_s=183, m_d=756)
@@ -326,7 +328,7 @@ CHUNK = 256                                  # the auto lane_chunk of the 400-ag
 #: rows timed alone, at shapes no phase of the main path launches (the log and
 #: PERF.md keep them; the kernels line lists what the main path ran)
 ALONE = ("cluster_fov256",)
-#: teams past every on-chip layout: the largest fov team and connectivity team
+#: teams past every register layout: the largest fov team and connectivity team
 #: every kernel must hold (coverage)
 LARGEST_TEAM = 512
 TEAM40_CONN_SHAPES = dict(n=75, m_s=165, m_d=78)
@@ -343,10 +345,11 @@ SOURCES = {"tiled": "mpc_cbf_torch/csrc/structured_admm_tiled.cu",
            "cluster": "mpc_cbf_torch/csrc/structured_admm_cluster.cu"}
 #: barriers of one iteration as the sources write them (generic:
 #: structured_admm_generic.cu; folded: structured_admm_folded.cu; cluster:
-#: structured_admm_cluster.cu's on-chip layout, three block-wide and two
-#: cluster-wide; its streamed layout has one block-wide fewer): a count read
-#: from the code, printed beside the measured times in the log only
-BARRIERS = {"generic": 3, "folded": 5, "cluster": 5}
+#: structured_admm_cluster.cu's register layout, two block-wide and two waits
+#: for the other blocks' pushes; its streamed layout has two block-wide and
+#: two cluster-wide): a count read from the code, printed beside the measured
+#: times in the log only
+BARRIERS = {"generic": 3, "folded": 5, "cluster": 4}
 # the card's peaks, NVIDIA's H100 SXM data sheet at 700 W: float32 outside the
 # tensor cores, float64 on the tensor cores (the tiled kernel runs their
 # mma.sync.m8n8k4.f64), HBM3
@@ -451,9 +454,17 @@ def build() -> None:
     lib = _build.build()
     _build.load()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s -> {lib.relative_to(_build.BUILD_ROOT.parent.parent)}")
-    for line in (lib.parent / "build.log").read_text().splitlines():
+    lines = (lib.parent / "build.log").read_text().splitlines()
+    for line in lines:
         if "registers" in line or "spill" in line or "# " in line[:2]:
             log(f"  {line.strip()}")
+    # the cluster kernel's register layout holds its rows in registers: no instance may spill
+    spilled = [line.split("'")[1] for i, line in enumerate(lines)
+               if "Compiling entry function" in line and "reg_kernel" in line
+               and not any("0 bytes spill stores, 0 bytes spill loads" in ln
+                           for ln in lines[i + 1:i + 4])]
+    if spilled or not any("reg_kernel" in line for line in lines):
+        raise AssertionError(f"ptxas: the register layout spills in {spilled} (or has no report)")
 
 
 def phase_inputs(B: int, seed: int, shapes=FOV_SHAPES, operand: str | None = None):
@@ -522,11 +533,19 @@ def check_kernel(iters: int = 40) -> dict:
         ("generic_sweep_r10", "sweep connectivity team of 10, a cold phase",
          sweep_shapes(10), SWEEP_SEEDS * 10, None, max(RUN_SIM_PHASES)),
         ("generic_team24", "24-agent fov", TEAM24_FOV_SHAPES, 64, None),
+        # the cluster kernel's register layout at the six teams the steps and the sweep cells
+        # run, each also for the 550 iterations of the fov step's longest phase
         ("cluster_fov40", "40-agent fov", TEAM40_FOV_SHAPES, 64, None),
+        ("cluster_fov40", "40-agent fov, the step's longest phase", TEAM40_FOV_SHAPES, 64, None,
+         max(SWARM_PHASES["fov"])),
         ("cluster_fov64", "64-agent fov", TEAM64_FOV_SHAPES, 16, None),
+        ("cluster_fov64", "64-agent fov, the step's longest phase", TEAM64_FOV_SHAPES, 16, None,
+         max(SWARM_PHASES["fov"])),
         ("cluster", "40-robot connectivity", TEAM40_CONN_SHAPES, 64, None),
-        # lanes larger than one SM: the cluster kernel (rows on chip but at 256 fov agents)
+        # lanes larger than one SM: the cluster kernel (rows in registers but at 256 fov agents)
         ("cluster_fov96", "96-agent fov", TEAM96_FOV_SHAPES, 4, None),
+        ("cluster_fov96", "96-agent fov, the step's longest phase", TEAM96_FOV_SHAPES, 4, None,
+         max(SWARM_PHASES["fov"])),
         ("cluster_fov128", "128-agent fov", TEAM128_FOV_SHAPES, 4, None),
         ("cluster_fov128", "128-agent fov, the step's longest phase", TEAM128_FOV_SHAPES, 4, None,
          max(SWARM_PHASES["fov"])),
@@ -541,8 +560,10 @@ def check_kernel(iters: int = 40) -> dict:
         ("cluster_fov400", "400-agent fov (rows and C streamed), the step's longest phase",
          TEAM400_FOV_SHAPES, 4, None, max(SWARM_PHASES["fov"])),
         ("cluster_conn128", "128-robot connectivity", TEAM128_CONN_SHAPES, 16, None),
+        ("cluster_conn128", "128-robot connectivity, 550 iterations", TEAM128_CONN_SHAPES, 16,
+         None, max(SWARM_PHASES["fov"])),
         ("cluster_conn256", "256-robot connectivity", TEAM256_CONN_SHAPES, 8, None),
-        ("cluster_conn256", "256-robot connectivity, the step's longest phase",
+        ("cluster_conn256", "256-robot connectivity, 550 iterations",
          TEAM256_CONN_SHAPES, 8, None, max(SWARM_PHASES["fov"])),
         ("cluster", "320-robot connectivity (rows and C streamed)", TEAM320_CONN_SHAPES, 4, None),
         ("cluster", "n = 162, past every one-block layout", dict(n=162, m_s=2, m_d=2), 3, None),
@@ -653,7 +674,7 @@ def per_iter_text(ms: float, its: int, mhz: float, variant: str) -> str:
     us = ms * 1e3 / its
     bars = BARRIERS.get(variant)
     return (f"{us:.3f} µs, {us * mhz:.0f} clocks at {mhz:.0f} MHz"
-            + (f" ({bars} block-wide barriers in the source)" if bars else ""))
+            + (f" ({bars} barriers in the source)" if bars else ""))
 
 
 def time_phases(what: str, shapes, B: int, phases=PHASES, variant: str | None = None,

@@ -36,9 +36,8 @@
 //             lane a block with [A_s; A_d] in registers (the sweep's and
 //             run_sim's connectivity teams, the 24-agent fov team).
 //   cluster   structured_admm_cluster.cu: one lane a thread-block cluster, for
-//             every larger lane; the rows on chip where the cluster's shared
-//             memory holds them, else streamed from device memory once an
-//             iteration.
+//             every larger lane; the rows in the blocks' registers where they
+//             fit, else streamed from device memory once an iteration.
 // A shape none of them holds (a lane whose vectors and row state exceed the
 // shared memory of a cluster: fov teams past about 1 000 agents) has no
 // kernel: the wrapper raises.

@@ -1,13 +1,12 @@
 // Structured-ADMM iteration loop for lanes too large for one SM, for Hopper
 // (sm_90a): one lane runs on a thread-block cluster of cs = 2, 4 or 8 blocks
-// on neighbouring SMs, which read each other's shared memory (distributed
-// shared memory) and meet at the cluster's hardware barrier. The kernel of
-// every shape that no layout of structured_admm_tiled.cu, _folded.cu or
-// _generic.cu holds: the fov teams of benchmarks/swarm.py from 30 agents
-// ((35 + A, 119 + A, 12 (A - 1)): (163, 247, 1524) at 128 agents, (291, 375,
-// 3060) at 256, (435, 519, 4788) at 400; the 32-agent team is folded's) and
-// the connectivity teams of apps/sweep.py and run_sim from 30 robots
-// ((35 + R, 125 + R, 2R - 2)).
+// on neighbouring SMs, which write into each other's shared memory
+// (distributed shared memory). The kernel of every shape that no layout of
+// structured_admm_tiled.cu, _folded.cu or _generic.cu holds: the fov teams
+// of benchmarks/swarm.py from 30 agents ((35 + A, 119 + A, 12 (A - 1)):
+// (163, 247, 1524) at 128 agents, (291, 375, 3060) at 256, (435, 519, 4788)
+// at 400; the 32-agent team is folded's) and the connectivity teams of
+// apps/sweep.py and run_sim from 30 robots ((35 + R, 125 + R, 2R - 2)).
 //
 // Replaces the Pallas TPU kernel mpc_cbf_tpu/ops/qp/pallas_admm.py::_kernel
 // (launched by structured_admm_iterations, pl.pallas_call at :170); what
@@ -16,33 +15,57 @@
 // The numbers that decide the design. At the 128-agent fov team a lane's
 // stacked matrix [A_s; A_d] is 1771 x 163 float32 words (1.15 MB) and its
 // float64 C = (M_s + A_d' R A_d)^-1 (the operand, factored by the caller)
-// 213 KB: neither fits the 227 KB of shared memory one block may have. An
-// iteration is 2 x 1771 x 163 = 577 k float32 multiply-adds and 26.6 k in
-// float64 a lane. Spread over 8 blocks the same lane is 144 KB of rows and
-// 27 KB of C a block: it fits on chip. From 147 fov agents on it does not
-// (a 256-agent lane is 4 MB of rows, a 400-agent lane 9.2 MB), and the rows
-// must come from device memory in every iteration: at 400 lanes of 400
-// agents that is at least 0.94 s a control step at 3.35 TB/s, against the
-// 0.12 s of its float32 arithmetic. There the bytes bound the loop.
+// 213 KB: neither fits one SM. An iteration is 2 x 1771 x 163 = 577 k
+// float32 multiply-adds and 26.6 k in float64 a lane: spread over 8 blocks,
+// 72 k multiply-adds a block, 566 clocks of the SM's 128 float32 lanes. The
+// rows fit 8 SMs' registers (222 rows x 6 column slots of 32 = 42.6 k of an
+// SM's 64 k registers). The layout this one replaced kept them in shared
+// memory and read them twice an iteration (289 KB a block, 2.3 k clocks at
+// 128 bytes a clock), with 7 warps an SM, and met the blocks at two cluster
+// barriers after loads from the other blocks: its stages measured 12.1-12.2 k
+// clocks an iteration, 4.6 k of them the column sums and 2.4-2.5 k the two
+// barriers (PERF.md, scripts/admm_kernel_sweep.py --stage-clocks). From 150
+// fov agents on the rows fit no cluster's registers (a 256-agent lane is 4 MB
+// of rows, a 400-agent lane 9.2 MB), and they come from device memory in
+// every iteration: at 400 lanes of 400 agents that is at least 0.94 s a
+// control step at 3.35 TB/s, against the 0.12 s of its float32 arithmetic.
+// There the bytes bound the loop.
 //
 // What this design does about it:
-// 1. xt = C RHS in float64 from the lane's C, read from device memory: block
-//    k of the cluster owns the rows [k n / cs, (k + 1) n / cs) of C. C RHS
+// 1. xt = C RHS in float64 from the lane's C: block k of the cluster owns the
+//    rows [k n / cs, (k + 1) n / cs) of C, kP threads a row. C RHS
 //    accumulates in float64 (the Woodbury cancellation, structured_admm.cu).
 // 2. Block k also owns the rows [k m / cs, (k + 1) m / cs) of [A_s; A_d]
-//    with their z, y, bounds and rho in its shared memory. An iteration has
-//    two cluster barriers: the blocks' partial column sums [A_s; A_d]'r are
-//    published at the first; each block then sums the cs partials of every
-//    column in rank order by reading the other blocks' shared memory, forms
-//    the whole RHS and its rows of xt = C RHS, and writes them into every
-//    block's copy of xt; the second barrier publishes xt.
+//    with their z, y, bounds and rho. An iteration has two exchanges between
+//    the blocks, and each is a push: the values go into the receiver's
+//    shared memory by st.async, each store counting its bytes on the
+//    receiver's mbarrier, and the receiver waits on its own mbarrier for the
+//    bytes of the phase, not for every block at a cluster barrier. Each block
+//    meets its warps' partial column sums [A_s; A_d]'r and pushes them into
+//    its own row of every block's buffer [cs, n]; each block then sums its
+//    buffer in rank order (RHS, the same in every block), forms its rows of
+//    xt = C RHS and pushes them into every block's copy of xt. No block reads
+//    another block's memory. At 128 agents the two waits take 1.0 k clocks an
+//    iteration where the replaced layout's two cluster barriers took 2.4-2.5 k
+//    (PERF.md).
 // 3. Where the rows live. Two layouts, kLayouts below:
-//    (a) on chip (fov teams to 146 agents, connectivity teams to 257 robots):
-//        the block's rows and its rows of C sit in shared memory, read twice
-//        an iteration: the column sums (lane l of a warp sums columns
-//        l + 32 c over the warp's 32-row chunks) before the first barrier,
-//        and after the second the row sums [A_s; A_d] xt (lane l takes row l
-//        of the chunk whole, odd row stride: 32 banks) with the row updates.
+//    (a) registers (fov teams to 149 agents, connectivity teams to 285
+//        robots): warp w of a block holds a strip of the block's rows, lane l
+//        columns l, l + 32, ... of each (RegShape: at most RW rows a strip, TC
+//        column slots), loaded once a launch. Both products come from those
+//        registers: the column sums as each lane's sums over its strip, met
+//        across the warps in shared memory; the row sums as each lane's
+//        partial sums, met across the warp by a transposing butterfly of
+//        shuffles (16 rows meet in 16 shuffles, and lane l ends with row
+//        l / 2 whole), after which the row's first lane updates it at once,
+//        with no block barrier of its own. The row state and the strip's r
+//        sit in shared memory (read by the row's lane and by the warp:
+//        __syncwarp). ptxas keeps RW x TC <= 84 floats of rows in the 128
+//        registers of a thread of 16 warps and 192 in the 255 of 8 warps
+//        without spilling; the fewest blocks whose strips fit run a shape, on
+//        16 warps where they fit (16 warps ran the 128-agent team 1.2 times
+//        faster than 8). An iteration at 128 agents is 6.3 k clocks against
+//        the replaced layout's 12.1-12.2 k (PERF.md).
 //    (b) streamed (every larger lane): one pass over the block's rows an
 //        iteration. A warp takes chunks of kRC rows, staged from device
 //        memory into a ring of 2 stages of its own by 16-byte cp.async
@@ -64,12 +87,14 @@
 //        chunk, read between the barriers (a 400-agent lane's C is 1.5 MB
 //        against 8.3 MB of A_d): a block then needs little beside the ring,
 //        and two or more blocks share an SM (kStreamWarps). A_s is the same
-//        for every lane: it is read from L2.
-//    The first layout of kLayouts that holds a shape runs it: rows on chip
-//    with 2, 4, then 8 blocks, then streamed with 8 (the portable maximum of
-//    a cluster; 16 blocks measured slower, PERF.md).
+//        for every lane: it is read from L2. This layout still reads the
+//        other blocks' partial column sums (form_rhs).
+//    The first layout of kLayouts that holds a shape runs it: registers with
+//    2, 4, then 8 blocks (16, then 8 warps), then streamed with 8 (the
+//    portable maximum of a cluster; 16 blocks measured slower, PERF.md).
 // One lane a cluster: a NaN lane cannot reach another lane.
-// scripts/admm_kernel_sweep.py --cluster times other kLayouts lines.
+// scripts/admm_kernel_sweep.py --cluster times other kLayouts lines, and
+// --stage-clocks the stages of an iteration (the STAGE markers).
 //
 // Built without --use_fast_math: inactive dynamic rows carry rho = 1e-12
 // and the loop divides by rho, so division must be IEEE and denormals kept.
@@ -88,9 +113,11 @@ __host__ __device__ constexpr int round_up(int a, int b) { return cdiv(a, b) * b
 __host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) / 16 * 16; }
 __host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int pow2_at_least(int x) {
+  return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2);
+}
 
-constexpr int kP = 8;                          // threads a row of C in xt = C RHS (on chip)
-constexpr int kSlots = 4;                      // column slots of 32 a lane copies at a time
+constexpr int kGroup = 16;                     // rows of a strip one butterfly meets
 constexpr int kRC = 4;                         // rows of [A_s; A_d] a streamed chunk (2 of C)
 static_assert(kRC % 2 == 0, "a chunk of C is kRC / 2 float64 rows");
 constexpr int kStages = 2;                     // chunks of a warp's ring
@@ -101,40 +128,78 @@ constexpr unsigned kFull = 0xffffffffu;
 // at most one row).
 __host__ __device__ inline int part_start(int count, int cs, int k) { return k * count / cs; }
 
+constexpr int kP = 8;                          // threads a row of C in xt = C RHS
+
 // Smallest row stride >= x (doubles) that is kP mod 2 kP: the kP threads of
 // a row and the 16 / kP rows of a half-warp then load from 32 distinct banks.
 __host__ __device__ constexpr int pad_c(int x) { return round_up(x + kP, 2 * kP) - kP; }
 
-// Shared memory of one block of the on-chip layout, byte offsets: C's rows,
-// the loop's vectors, the row state and the rows. The rows' stride lda is
-// odd: a warp whose lanes read one row each, at the same column, reads 32
-// distinct banks.
-struct ClusterLayout {
-  int n, m_s, m_d, m, cs, rows, crows, nw, nv, ldc, lda;
-  size_t c, rhs, x, q, xtf, pcol, pw, rv, st, a, bytes;
-  __host__ __device__ ClusterLayout(int n_, int m_s_, int m_d_, int cs_)
-      : n(n_), m_s(m_s_), m_d(m_d_), m(m_s_ + m_d_), cs(cs_) {
+// Stage clocks of an iteration, for scripts/admm_kernel_sweep.py --stage-clocks only: it
+// compiles a copy with ADMM_STAGE_CLOCKS defined, and the package's build leaves the markers
+// empty. Each thread adds the clocks since the last marker to its count of stage s, in
+// registers; after the loop thread 0 of block 0 adds its counts to admm_stage_clocks.
+#ifdef ADMM_STAGE_CLOCKS
+__device__ unsigned long long admm_stage_clocks[8];
+#define STAGE_START                  \
+  long long stage_sum[8] = {};       \
+  long long stage_t = clock64()
+#define STAGE(s)                                  \
+  {                                               \
+    const long long stage_now = clock64();        \
+    stage_sum[s] += stage_now - stage_t;          \
+    stage_t = stage_now;                          \
+  }
+#define STAGE_END                                                              \
+  if (blockIdx.x == 0 && threadIdx.x == 0)                                     \
+    for (int s = 0; s < 8; ++s)                                                \
+      admm_stage_clocks[s] += static_cast<unsigned long long>(stage_sum[s])
+#else
+#define STAGE_START
+#define STAGE(s)
+#define STAGE_END
+#endif
+
+// Shared memory of one block of the register layout, byte offsets: the two
+// exchanges' mbarriers, C's rows, the loop's vectors, the pushed partial column
+// sums, the warps' partials, each strip's r and the row state.
+struct RegLayout {
+  int n, m, cs, nw, rows, crows, rw, nv, ldc, rwp, rv4;
+  size_t bar, c, rhs, x, q, xtf, buf, pw, rv, st, bytes;
+  __host__ __device__ RegLayout(int n_, int m_s, int m_d, int cs_, int nw_)
+      : n(n_), m(m_s + m_d), cs(cs_), nw(nw_) {
     rows = cdiv(m, cs);                    // rows of [A_s; A_d] a block, at most
     crows = cdiv(n, cs);                   // rows of C a block, at most
-    nw = imin(16, imax(4, cdiv(rows, 32)));
+    rw = cdiv(rows, nw);                   // rows a warp's strip, at most
     nv = round_up(n, 4);
     ldc = pad_c(n);
-    lda = n | 1;
-    const int rv4 = round_up(rows, 4);
-    c = 0;                                                        // C [crows, ldc] f64
-    rhs = align16(c + size_t(8) * crows * ldc);                   // RHS [nv] f32
-    x = rhs + size_t(4) * nv;                                     // x, q, xt [nv] f32
+    rwp = round_up(rw, 4);
+    rv4 = round_up(rows, 4);
+    bar = 0;                                                      // 2 mbarriers
+    c = 16;                                                       // C [crows, ldc] f64
+    rhs = align16(c + size_t(8) * crows * ldc);                   // RHS [nv] f64
+    x = rhs + size_t(8) * nv;                                     // x, q, xt [nv] f32
     q = x + size_t(4) * nv;
     xtf = q + size_t(4) * nv;
-    pcol = xtf + size_t(4) * nv;                                  // the block's partial [nv]
-    pw = pcol + size_t(4) * nv;                                   // the warps' partials [nw, nv]
-    rv = pw + size_t(4) * nw * nv;                                // r = rho z - y [rv4]
-    st = rv + size_t(4) * rv4;                                    // z, y, lo, hi, rho [rv4]
-    a = st + size_t(4) * 5 * rv4;                                 // rows [rv4, lda]
-    bytes = align16(a + size_t(4) * rv4 * lda);
+    buf = xtf + size_t(4) * nv;                                   // the blocks' partials [cs, nv]
+    pw = buf + size_t(4) * cs * nv;                               // the warps' partials [nw, nv]
+    rv = pw + size_t(4) * nw * nv;                                // r of each strip [nw, rwp]
+    st = rv + size_t(4) * nw * rwp;                               // z, y, lo, hi, rho [5, rv4]
+    bytes = align16(st + size_t(4) * 5 * rv4);
   }
   __host__ __device__ bool fits() const { return bytes <= kMaxSharedBytes; }
 };
+
+// One instance of the register layout: NW warps a block, at most RW rows a
+// strip, TC column slots of 32 a lane (n <= 32 TC). RW x TC floats of rows a
+// thread, within the 65 536 / (32 NW) registers the launch bounds give it.
+template <int NW_, int RW_, int TC_>
+struct RegShape {
+  static constexpr int NW = NW_, RW = RW_, TC = TC_;
+  static_assert(RW % 2 == 0 && RW >= 4 && TC >= 1 && (NW == 8 || NW == 16), "layout");
+};
+template <class... S>
+struct ShapeList {};
+
 
 // Shared memory of one block of the streamed layout, nw warps, byte offsets:
 // the sums RHS, the block's and the warps' partial column sums (float64), the
@@ -172,33 +237,7 @@ constexpr int kStreamWarps[] = {8, 4};
 constexpr int kStreamMinBlocks = 2;            // __launch_bounds__: at most 128 registers
 constexpr size_t kSharedBytesPerSM = 233472;   // 228 KB, 1 KB of it reserved for each block
 
-// dst_row(r)[c] = src_row(r)[c] for r < R, c < C, and 0 where c >= C_in or
-// src_row(r) is null. The block's warps take two rows at a time, the lanes
-// kSlots columns of each: 2 kSlots loads are in flight before a thread stores.
-template <class Src, class Dst>
-__device__ __forceinline__ void copy_rows(int R, int C, int C_in, Src src_row, Dst dst_row) {
-  const int nw = blockDim.x / 32, w = threadIdx.x / 32, l = threadIdx.x % 32;
-  for (int r0 = w; r0 < R; r0 += 2 * nw) {
-    const float* s[2] = {src_row(r0), r0 + nw < R ? src_row(r0 + nw) : nullptr};
-    for (int c0 = l; c0 < C; c0 += 32 * kSlots) {
-      float v[2][kSlots];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int u = 0; u < kSlots; ++u) {
-          const int c = c0 + 32 * u;
-          v[h][u] = s[h] != nullptr && c < C_in ? s[h][c] : 0.f;
-        }
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int u = 0; u < kSlots; ++u) {
-          const int r = r0 + h * nw, c = c0 + 32 * u;
-          if (r < R && c < C) dst_row(r)[c] = v[h][u];
-        }
-    }
-  }
-}
+
 
 // The block's rows [cb, cb + nc) of C (the lane's [n, n] in device memory)
 // into Cm [nc, ldc].
@@ -209,9 +248,9 @@ __device__ __forceinline__ void load_c_rows(double* Cm, int ldc, const double* C
 }
 
 // The lane's vectors x and q, and the z, y, bounds and rho of the block's rows
-// [rb, rb + rows) of [A_s; A_d]; r = rho z - y into rv (if not null), 0 up to rv4.
+// [rb, rb + rows) of [A_s; A_d] into st (five arrays at stride rv4).
 __device__ __forceinline__ void load_state(const AdmmArgs& a, int lane, int rb, int rows, int rv4,
-                                           float* x, float* q, float* st, float* rv) {
+                                           float* x, float* q, float* st) {
   const int n = a.n, m_s = a.m_s;
   const size_t ln = size_t(lane) * n, ls = size_t(lane) * m_s, ld = size_t(lane) * a.m_d;
   float *zs = st, *ys = st + rv4, *los = st + 2 * rv4, *his = st + 3 * rv4, *rhos = st + 4 * rv4;
@@ -219,22 +258,15 @@ __device__ __forceinline__ void load_state(const AdmmArgs& a, int lane, int rb, 
     x[j] = a.x0[ln + j];
     q[j] = a.q[ln + j];
   }
-  for (int i = threadIdx.x; i < rv4; i += blockDim.x) {
-    float rr = 0.f;
-    if (i < rows) {
-      const int row = rb + i;
-      const bool s = row < m_s;
-      const size_t kk = s ? ls + row : ld + (row - m_s);
-      const float rh = s ? a.rho_s[row] : a.rho_d[kk];
-      const float zi = (s ? a.zs0 : a.zd0)[kk], yi = (s ? a.ys0 : a.yd0)[kk];
-      zs[i] = zi;
-      ys[i] = yi;
-      los[i] = (s ? a.lbs : a.lbd)[kk];
-      his[i] = (s ? a.ubs : a.ubd)[kk];
-      rhos[i] = rh;
-      rr = rh * zi - yi;
-    }
-    if (rv != nullptr) rv[i] = rr;                 // 0 past the rows: the float4 loads
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+    const int row = rb + i;
+    const bool s = row < m_s;
+    const size_t kk = s ? ls + row : ld + (row - m_s);
+    zs[i] = (s ? a.zs0 : a.zd0)[kk];
+    ys[i] = (s ? a.ys0 : a.yd0)[kk];
+    los[i] = (s ? a.lbs : a.lbd)[kk];
+    his[i] = (s ? a.ubs : a.ubd)[kk];
+    rhos[i] = s ? a.rho_s[row] : a.rho_d[kk];
   }
 }
 
@@ -252,164 +284,318 @@ __device__ __forceinline__ void store_state(const AdmmArgs& a, int lane, int rb,
   }
 }
 
-// RHS = sigma x - q + the blocks' partial column sums pcol, in rank order (R:
-// float, or double for the streamed layout's sums).
-template <class R>
+// RHS = sigma x - q + the blocks' partial column sums pcol, read from each block in rank
+// order (the streamed layout).
 __device__ __forceinline__ void form_rhs(cg::cluster_group& cluster, int cs, int n, float sigma,
-                                         const float* x, const float* q, R* pcol, R* rhs) {
+                                         const float* x, const float* q, double* pcol,
+                                         double* rhs) {
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    R s = 0;
+    double s = 0;
     for (int b = 0; b < cs; ++b) s += cluster.map_shared_rank(pcol, b)[j];
-    rhs[j] = static_cast<R>(sigma * x[j] - q[j]) + s;
+    rhs[j] = static_cast<double>(sigma * x[j] - q[j]) + s;
   }
 }
 
-// The block's rows [cb, cb + nc) of xt = C RHS from C's rows Cm [nc, ldc] in
-// shared memory, kP threads a row; thread p of a row writes the row's value
-// into the copies of xt of blocks p, p + kP, ...
-__device__ __forceinline__ void xt_rows(cg::cluster_group& cluster, int cs, const double* Cm,
-                                        int ldc, int cb, int nc, int n, const float* rhs,
-                                        float* xtf) {
-  const int T = blockDim.x, tid = threadIdx.x;
-  for (int r0 = 0; r0 < nc; r0 += T / kP) {
-    const int row = r0 + tid / kP, p = tid % kP;
-    const double* crow = Cm + size_t(imin(row, nc - 1)) * ldc;
-    double s0 = 0.0, s1 = 0.0;
-    int c = p;
-    for (; c + kP < n; c += 2 * kP) {
-      s0 = fma(crow[c], static_cast<double>(rhs[c]), s0);
-      s1 = fma(crow[c + kP], static_cast<double>(rhs[c + kP]), s1);
-    }
-    if (c < n) s0 = fma(crow[c], static_cast<double>(rhs[c]), s0);
-    double s = s0 + s1;
+
+// ---- the register layout --------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The exchanges between a cluster's blocks: a block pushes values into another
+// block's shared memory with st.async, each store counting its bytes on that
+// block's mbarrier; the receiver arms the mbarrier with the bytes a phase
+// brings (its one arrival) and waits for the phase to complete, which makes the
+// values visible. An mbarrier completes one phase an iteration: parity it & 1.
+// The address of p (this block's shared memory) in block `rank` of the cluster.
+__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+__device__ __forceinline__ void push(unsigned addr, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];"
+               ::"r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void bar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// Waits for the phase of parity `parity`, the thread suspended for up to a millisecond a try
+// (a spinning warp would take instruction slots and shared-memory cycles from the warps
+// still working). The values pushed are in this block's shared memory: the wait's default
+// acquire at CTA scope makes them visible. A push that never came would hang the card:
+// after 2^14 tries the kernel traps instead.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  for (int tries = 0; !done; ++tries) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity), "r"(1000000u) : "memory");
+    if (tries > (1 << 14)) __trap();
+  }
+}
+
+// The sums over the warp of GS rows' partial sums v (lane l's part of each):
+// a transposing butterfly. At the step across lanes O apart a lane keeps half
+// of its rows and adds the partner's part of them (GS / 2 shuffles), so after
+// log2 GS steps lane l holds row l / (32 / GS) summed over 32 / GS lanes, and
+// the remaining steps add the rest. Returns that row's whole sum.
+template <int GS, int O = 16>
+__device__ __forceinline__ float meet_rows(float* v, int l) {
+  if constexpr (GS > 1) {
+    const bool up = (l & O) != 0;
 #pragma unroll
-    for (int o = 1; o < kP; o <<= 1) s += __shfl_xor_sync(kFull, s, o);
-    if (row < nc)
-      for (int b = p; b < cs; b += kP)
-        cluster.map_shared_rank(xtf, b)[cb + row] = static_cast<float>(s);
+    for (int i = 0; i < GS / 2; ++i) {
+      const float send = up ? v[i] : v[i + GS / 2];
+      const float keep = up ? v[i + GS / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(kFull, send, O);
+    }
+    return meet_rows<GS / 2, O / 2>(v, l);
+  } else {
+    float t = v[0];
+#pragma unroll
+    for (int o = O; o > 0; o >>= 1) t += __shfl_xor_sync(kFull, t, o);
+    return t;
   }
 }
 
-// ---- the on-chip layout ---------------------------------------------------------------------
+// Lane l's part of row j of the strip, [A_s; A_d]_j xt over its columns. The registers past
+// the strip's rows and past n hold 0: no row or column is skipped.
+template <int RW, int TC>
+__device__ __forceinline__ float row_part(const float (&A)[RW][TC], const float (&xv)[TC], int j) {
+  float s = 0.f;
+  if (j < RW)
+#pragma unroll
+    for (int c = 0; c < TC; ++c) s = fmaf(A[imin(j, RW - 1)][c], xv[c], s);
+  return s;
+}
+
+// The row sums [A_s; A_d] xt of the strip's rows J0, J0 + kGroup, ... (cnt rows
+// of RW), a group of GS <= kGroup at a time, and their updates. The first two
+// steps of the butterfly are taken as the partial sums are formed (four rows at
+// a time), so that a lane holds GS / 4 partials, not GS. Lane l of a group holds row
+// J0 + l / (32 / GS) whole; the first of its 32 / GS lanes updates the row's
+// state st (z, y, lo, hi, rho at stride rv4, from the strip's first row sb) and
+// its r in rs.
+template <int RW, int TC, int J0 = 0>
+__device__ __forceinline__ void strip_rows(const float (&A)[RW][TC], const float (&xv)[TC], int cnt,
+                                           int l, int sb, float* st, int rv4, float* rs,
+                                           float alpha, float beta) {
+  if constexpr (J0 < RW) {
+    constexpr int GS = pow2_at_least(imin(kGroup, RW - J0));
+    static_assert(GS >= 4, "a group of at least four rows");
+    if (J0 < cnt) {
+      constexpr int Q = GS / 4;
+      float v[Q];
+      const bool up16 = (l & 16) != 0, up8 = (l & 8) != 0;
+#pragma unroll
+      for (int i = 0; i < Q; ++i) {
+        // rows i, i + Q, i + 2Q, i + 3Q: the step across 16 lanes pairs the first and third,
+        // the second and fourth; the step across 8 the two sums
+        const float a0 = row_part(A, xv, J0 + i);
+        const float a1 = row_part(A, xv, J0 + i + Q);
+        const float a2 = row_part(A, xv, J0 + i + 2 * Q);
+        const float a3 = row_part(A, xv, J0 + i + 3 * Q);
+        const float u0 = (up16 ? a2 : a0) + __shfl_xor_sync(kFull, up16 ? a0 : a2, 16);
+        const float u1 = (up16 ? a3 : a1) + __shfl_xor_sync(kFull, up16 ? a1 : a3, 16);
+        v[i] = (up8 ? u1 : u0) + __shfl_xor_sync(kFull, up8 ? u0 : u1, 8);
+      }
+      const float zA = meet_rows<Q, 4>(v, l);
+      const int d = 32 / GS, j = J0 + l / d;
+      if (l % d == 0 && j < cnt) {
+        const int i = sb + j;
+        float z = st[i], y = st[rv4 + i];
+        rs[j] = row_update(zA, st[4 * rv4 + i], st[2 * rv4 + i], st[3 * rv4 + i], alpha, beta, z,
+                           y);
+        st[i] = z;
+        st[rv4 + i] = y;
+      }
+    }
+    strip_rows<RW, TC, J0 + kGroup>(A, xv, cnt, l, sb, st, rv4, rs, alpha, beta);
+  }
+}
 
 // One lane a cluster of cs blocks (grid: B cs blocks, cluster: cs); the
-// block's rows of [A_s; A_d] and of C in its shared memory.
-__global__ void __launch_bounds__(512) cluster_kernel(const AdmmArgs a) {
+// block's rows of [A_s; A_d] in its warps' registers, its rows of C in shared
+// memory (see 3 (a) above).
+template <int NW, int RW, int TC>
+__global__ void __launch_bounds__(32 * NW, 1) reg_kernel(const AdmmArgs a) {
+  constexpr int T = 32 * NW;
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
   const int k = static_cast<int>(cluster.block_rank());
   const int lane = blockIdx.x / cs;                 // grid = B cs: every cluster is a lane
   const int n = a.n, m_s = a.m_s;
-  const ClusterLayout L(n, m_s, a.m_d, cs);
-  const int nw = L.nw, nv = L.nv, ldc = L.ldc, lda = L.lda;
-  const int T = 32 * nw, tid = threadIdx.x, w = tid / 32, l = tid % 32;
+  const RegLayout L(n, m_s, a.m_d, cs, NW);
+  const int nv = L.nv, ldc = L.ldc, rv4 = L.rv4;
+  const int tid = threadIdx.x, w = tid / 32, l = tid % 32;
   const int rb = part_start(L.m, cs, k), rows = part_start(L.m, cs, k + 1) - rb;   // its rows
   const int cb = part_start(n, cs, k), nc = part_start(n, cs, k + 1) - cb;         // its rows of C
-  const int nch = cdiv(rows, 32);                   // chunks of 32 rows, chunk ch to warp ch % nw
-  const int rv4 = round_up(L.rows, 4);
+  const int sb = part_start(rows, NW, w), cnt = part_start(rows, NW, w + 1) - sb;  // the strip
 
   extern __shared__ double smem[];
   char* base = reinterpret_cast<char*>(smem);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L.bar);  // [0]: the partials, [1]: xt
   double* Cm = reinterpret_cast<double*>(base + L.c);        // [nc, ldc]
-  float* rhs = reinterpret_cast<float*>(base + L.rhs);       // f32 values, used in float64
+  double* rhs = reinterpret_cast<double*>(base + L.rhs);
   float* x = reinterpret_cast<float*>(base + L.x);
   float* q = reinterpret_cast<float*>(base + L.q);
-  float* xtf = reinterpret_cast<float*>(base + L.xtf);       // xt, each block's rows written by it
-  float* pcol = reinterpret_cast<float*>(base + L.pcol);     // its partial [A_s; A_d]'r, published
+  float* xtf = reinterpret_cast<float*>(base + L.xtf);       // xt, each block's rows pushed by it
+  float* buf = reinterpret_cast<float*>(base + L.buf);       // [cs, nv]: block b's partial in row b
   float* pw = reinterpret_cast<float*>(base + L.pw);
-  float* rv = reinterpret_cast<float*>(base + L.rv);
+  float* rs = reinterpret_cast<float*>(base + L.rv) + w * L.rwp;   // r of the strip's rows
   float* st = reinterpret_cast<float*>(base + L.st);
-  float *zs = st, *ys = st + rv4, *los = st + 2 * rv4, *his = st + 3 * rv4, *rhos = st + 4 * rv4;
-  float* As = reinterpret_cast<float*>(base + L.a);          // [rows, lda]
+  const float *zs = st, *ys = st + rv4, *rhos = st + 4 * rv4;
   const float* Ad = a.Ad + size_t(lane) * a.m_d * n;         // [m_d, n]
 
+  if (tid == 0) {
+    bar_init(&bars[0]);
+    bar_init(&bars[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
   load_c_rows(Cm, ldc, a.C + size_t(lane) * n * n, cb, nc, n);
-  load_state(a, lane, rb, rows, rv4, x, q, st, rv);
-  copy_rows(
-      rv4, n, n,
-      [&](int i) -> const float* {
-        if (i >= rows) return nullptr;
-        const int row = rb + i;
-        return row < m_s ? a.A_s + size_t(row) * n : Ad + size_t(row - m_s) * n;
-      },
-      [&](int i) { return As + size_t(i) * lda; });
-  cluster.sync();                                  // every block of the lane runs; all in place
-
-  const float alpha = a.alpha, beta = 1.0f - a.alpha;
-  for (int it = 0; it < a.iters; ++it) {
-    // (a) the warps' column sums of [A_s; A_d]'r over their chunks, met in the block. The
-    // rows of a chunk are base + j lda (past its last row: that row again, times r = 0),
-    // so that every load of a step is in flight before its multiply-adds wait
-    for (int col = l; col < n; col += 32) {
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-      for (int ch = w; ch < nch; ch += nw) {
-        const int j0 = 32 * ch, cnt = imin(32, rows - j0), c4 = round_up(cnt, 4);
-        const float4* r4 = reinterpret_cast<const float4*>(rv + j0);
-        const float* arow = As + size_t(j0) * lda + col;
-        const int last = cnt - 1;
-#pragma unroll 4
-        for (int j = 0; j < c4; j += 4) {
-          const float4 r = r4[j / 4];
-          s0 = fmaf(arow[j * lda], r.x, s0);
-          s1 = fmaf(arow[imin(j + 1, last) * lda], r.y, s1);
-          s2 = fmaf(arow[imin(j + 2, last) * lda], r.z, s2);
-          s3 = fmaf(arow[imin(j + 3, last) * lda], r.w, s3);
-        }
-      }
-      pw[w * nv + col] = (s0 + s1) + (s2 + s3);
-    }
-    __syncthreads();
-    for (int j = tid; j < n; j += T) {
-      float s = 0.f;
-      for (int v = 0; v < nw; ++v) s += pw[v * nv + j];
-      pcol[j] = s;
-    }
-    cluster.sync();                                // every block's partial is published
-    // (b) RHS = sigma x - q + the blocks' partials in rank order; its rows of xt = C RHS
-    form_rhs(cluster, cs, n, a.sigma, x, q, pcol, rhs);
-    __syncthreads();
-    xt_rows(cluster, cs, Cm, ldc, cb, nc, n, rhs, xtf);
-    cluster.sync();                                // every block's rows of xt are in every block
-    // (c) relax x, then the block's rows of [A_s; A_d] xt and their updates; lane l takes
-    // row j0 + l of its warp's chunk whole
-    for (int j = tid; j < n; j += T) x[j] = alpha * xtf[j] + beta * x[j];
-    __syncthreads();
-    for (int ch = w; ch < nch; ch += nw) {
-      const int j0 = 32 * ch, cnt = imin(32, rows - j0);
-      if (l < cnt) {
-        const int i = j0 + l;
-        const float* arow = As + size_t(i) * lda;
-        const float4* x4 = reinterpret_cast<const float4*>(xtf);
-        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-        int c = 0;
-#pragma unroll 4
-        for (; c + 4 <= n; c += 4) {
-          const float4 xv = x4[c / 4];
-          s0 = fmaf(arow[c], xv.x, s0);
-          s1 = fmaf(arow[c + 1], xv.y, s1);
-          s2 = fmaf(arow[c + 2], xv.z, s2);
-          s3 = fmaf(arow[c + 3], xv.w, s3);
-        }
-        for (; c < n; ++c) s0 = fmaf(arow[c], xtf[c], s0);
-        float z = zs[i], y = ys[i];
-        rv[i] = row_update((s0 + s1) + (s2 + s3), rhos[i], los[i], his[i], alpha, beta, z, y);
-        zs[i] = z;
-        ys[i] = y;
-      }
-      __syncwarp();                                // rv is read by the whole warp next
+  load_state(a, lane, rb, rows, rv4, x, q, st);
+  // the strip: A[j][c] = [A_s; A_d] at row rb + sb + j, column l + 32 c (0 past them)
+  float A[RW][TC];
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    const int row = rb + sb + imin(j, imax(cnt - 1, 0));
+    const float* src = row < m_s ? a.A_s + size_t(row) * n : Ad + size_t(row - m_s) * n;
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+      const int col = l + 32 * c;
+      A[j][c] = j < cnt && col < n ? src[col] : 0.f;
     }
   }
+  for (int j = tid; j < NW * nv; j += T) pw[j] = 0.f;    // the columns past n stay 0
+  __syncthreads();                                 // the row state is in place
+  for (int j = l; j < L.rwp; j += 32)
+    rs[j] = j < cnt ? rhos[sb + j] * zs[sb + j] - ys[sb + j] : 0.f;
+  __syncwarp();
+  // every block of the lane runs, with its mbarriers set up, before the first push
+  cluster.sync();
+  // the bytes a phase brings: every block's partial (nv floats), and xt
+  const unsigned bytes_partials = 4u * cs * nv, bytes_xt = 4u * n;
+
+  const float alpha = a.alpha, beta = 1.0f - a.alpha;
+  STAGE_START;
+  for (int it = 0; it < a.iters; ++it) {
+    const unsigned parity = it & 1;
+    // (a) the strip's column sums of [A_s; A_d]'r: lane l over its columns, r broadcast
+    {
+      float s[TC];
+#pragma unroll
+      for (int c = 0; c < TC; ++c) s[c] = 0.f;
+      const float4* r4 = reinterpret_cast<const float4*>(rs);
+#pragma unroll
+      for (int j4 = 0; j4 < RW / 4; ++j4) {
+        if (4 * j4 < cnt) {                        // past cnt: A and r are 0
+          const float4 r = r4[j4];
+#pragma unroll
+          for (int c = 0; c < TC; ++c) {
+            s[c] = fmaf(A[4 * j4][c], r.x, s[c]);
+            s[c] = fmaf(A[4 * j4 + 1][c], r.y, s[c]);
+            s[c] = fmaf(A[4 * j4 + 2][c], r.z, s[c]);
+            s[c] = fmaf(A[4 * j4 + 3][c], r.w, s[c]);
+          }
+        }
+      }
+      if constexpr (RW % 4 == 2) {                 // the strip's last two rows
+        if (RW - 2 < cnt) {
+          const float2 r = reinterpret_cast<const float2*>(rs)[RW / 2 - 1];
+#pragma unroll
+          for (int c = 0; c < TC; ++c) {
+            s[c] = fmaf(A[RW - 2][c], r.x, s[c]);
+            s[c] = fmaf(A[RW - 1][c], r.y, s[c]);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < TC; ++c) {
+        const int col = l + 32 * c;
+        if (col < n) pw[w * nv + col] = s[c];
+      }
+    }
+    STAGE(0);
+    if (tid == 0) bar_expect(&bars[0], bytes_partials);
+    __syncthreads();
+    // (b) the block's partial: its even and its odd warps each in order, then the two,
+    // pushed into row k of every block's buf
+    for (int j = tid; j < nv; j += T) {
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int v = 0; v < NW; v += 2) {
+        s0 += pw[v * nv + j];
+        s1 += pw[(v + 1) * nv + j];
+      }
+      const float s = s0 + s1;
+      for (int b = 0; b < cs; ++b)
+        push(cluster_addr(buf + k * nv + j, b), s, cluster_addr(&bars[0], b));
+    }
+    STAGE(1);
+    bar_wait(&bars[0], parity);                    // every block's partial is here
+    STAGE(2);
+    // (c) RHS = sigma x - q + the blocks' partials in rank order (thread j keeps x_j)
+    for (int j = tid; j < n; j += T) {
+      float s = 0.f;
+      for (int b = 0; b < cs; ++b) s += buf[b * nv + j];
+      rhs[j] = static_cast<double>((a.sigma * x[j] - q[j]) + s);
+    }
+    if (tid == 0) bar_expect(&bars[1], bytes_xt);
+    __syncthreads();
+    STAGE(3);
+    // (d) the block's rows of xt = C RHS, kP threads a row (a warp past the rows skips);
+    // thread p of a row pushes its value into the xt of blocks p, p + kP, ...
+    for (int r0 = 0; r0 < nc; r0 += T / kP) {
+      if (r0 + (tid & ~31) / kP >= nc) continue;
+      const int row = r0 + tid / kP, p = tid % kP;
+      const double* crow = Cm + size_t(imin(row, nc - 1)) * ldc;
+      double s0 = 0.0, s1 = 0.0;
+      int c = p;
+      for (; c + kP < n; c += 2 * kP) {
+        s0 = fma(crow[c], rhs[c], s0);
+        s1 = fma(crow[c + kP], rhs[c + kP], s1);
+      }
+      if (c < n) s0 = fma(crow[c], rhs[c], s0);
+      double s = s0 + s1;
+#pragma unroll
+      for (int o = 1; o < kP; o <<= 1) s += __shfl_xor_sync(kFull, s, o);
+      if (row < nc)
+        for (int b = p; b < cs; b += kP)
+          push(cluster_addr(xtf + cb + row, b), static_cast<float>(s), cluster_addr(&bars[1], b));
+    }
+    STAGE(4);
+    bar_wait(&bars[1], parity);                    // every block's rows of xt are here
+    STAGE(5);
+    // (e) relax x; the strip's row sums [A_s; A_d] xt from the registers, and their updates
+    for (int j = tid; j < n; j += T) x[j] = alpha * xtf[j] + beta * x[j];
+    float xv[TC];
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+      const int col = l + 32 * c;
+      xv[c] = col < n ? xtf[col] : 0.f;
+    }
+    strip_rows<RW, TC>(A, xv, cnt, l, sb, st, rv4, rs, alpha, beta);
+    __syncwarp();                                  // rs is read by the whole warp next
+    STAGE(6);
+  }
+  STAGE_END;
 
   __syncthreads();                                 // x and the row state, written by other warps
   store_state(a, lane, rb, rows, rv4, cb, nc, x, st);
-  cluster.sync();                                  // no block leaves while another reads it
+  // every push to this block came before its last wait, and every push it made was to a block
+  // still waiting for it: it may leave without a barrier
 }
 
 // ---- the streamed layout --------------------------------------------------------------------
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
@@ -526,7 +712,7 @@ __global__ void __launch_bounds__(256, kStreamMinBlocks) stream_kernel(const Adm
   };
 
   for (int s = 0; s < S - 1; ++s) fetch(s);        // the ring's first chunks, while the state loads
-  load_state(a, lane, rb, rows, rv4, x, q, st, nullptr);
+  load_state(a, lane, rb, rows, rv4, x, q, st);
   __syncthreads();
 
   const float alpha = a.alpha, beta = 1.0f - a.alpha;
@@ -641,45 +827,9 @@ __global__ void __launch_bounds__(256, kStreamMinBlocks) stream_kernel(const Adm
   cluster.sync();                                   // no block leaves while another reads it
 }
 
+
 // ---- layouts and launch ---------------------------------------------------------------------
 
-struct ClusterChoice {
-  int cs;
-  bool on_chip;
-};
-
-// The layouts, tried in this order: the first that holds a shape runs it.
-constexpr ClusterChoice kLayouts[] = {{2, true}, {4, true}, {8, true}, {8, false}};
-
-// The streamed layout's warps a block for cs blocks a lane (kStreamWarps), or 0 where
-// none fits.
-int stream_warps(int n, int m_s, int m_d, int cs) {
-  int best = 0, best_warps = 0, best_blocks = 0;
-  for (int nw : kStreamWarps) {
-    const StreamLayout L(n, m_s, m_d, cs, nw);
-    if (!L.fits()) continue;
-    const int by_regs = kStreamMinBlocks * 8 / nw;         // 128 registers x 256 threads x 2
-    const int blocks = imin(by_regs, static_cast<int>(kSharedBytesPerSM / (L.bytes + 1024)));
-    if (blocks * nw > best_warps || (blocks * nw == best_warps && blocks > best_blocks)) {
-      best = nw;
-      best_warps = blocks * nw;
-      best_blocks = blocks;
-    }
-  }
-  return best;
-}
-
-bool holds(const ClusterChoice& c, int n, int m_s, int m_d) {
-  return c.on_chip ? ClusterLayout(n, m_s, m_d, c.cs).fits()
-                   : stream_warps(n, m_s, m_d, c.cs) > 0;
-}
-
-// The first layout of kLayouts that holds the shape, or nullptr.
-const ClusterChoice* layout_for(int n, int m_s, int m_d) {
-  for (const ClusterChoice& c : kLayouts)
-    if (holds(c, n, m_s, m_d)) return &c;
-  return nullptr;
-}
 
 // Launches kernel on a grid of `grid` blocks in clusters of cs.
 template <class Kernel, class... Args>
@@ -707,6 +857,76 @@ int launch_grid(Kernel kernel, unsigned grid, int cs, int threads, size_t bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The register layout's instances, tried in this order for the warps a layout names: the first
+// whose strips and column slots hold a shape runs it. RW x TC stays within the registers that
+// ptxas gives a thread without spilling (-Xptxas -v: 128 at 16 warps, 255 at 8).
+using RegShapes = ShapeList<RegShape<16, 20, 3>, RegShape<16, 28, 3>, RegShape<16, 20, 4>,
+                            RegShape<16, 16, 5>, RegShape<16, 14, 6>, RegShape<16, 12, 7>,
+                            RegShape<16, 10, 8>, RegShape<16, 8, 10>, RegShape<8, 32, 6>>;
+
+struct ClusterChoice {
+  int cs;
+  bool registers;                              // else streamed
+  int nw;                                      // warps a block of the register layout
+};
+
+// The layouts, tried in this order: the first that holds a shape runs it.
+constexpr ClusterChoice kLayouts[] = {{2, true, 16}, {2, true, 8}, {4, true, 16}, {8, true, 16},
+                                      {8, true, 8}, {8, false, 0}};
+
+template <class S>
+bool reg_holds(int n, int m, int cs, int nw) {
+  return S::NW == nw && cdiv(n, 32) <= S::TC && cdiv(cdiv(m, cs), nw) <= S::RW;
+}
+
+// Whether an instance of the list holds the shape with cs blocks of nw warps; with a launch,
+// launches the first that does (rc: its cudaError_t).
+template <class S, class... Rest>
+bool reg_instance(ShapeList<S, Rest...>, const AdmmArgs* a, int n, int m, int cs, int nw,
+                  size_t bytes, cudaStream_t stream, int* rc) {
+  if (reg_holds<S>(n, m, cs, nw)) {
+    if (a != nullptr)
+      *rc = launch_grid(reg_kernel<S::NW, S::RW, S::TC>, static_cast<unsigned>(a->B) * cs, cs,
+                        32 * S::NW, bytes, stream, *a);
+    return true;
+  }
+  if constexpr (sizeof...(Rest) > 0)
+    return reg_instance(ShapeList<Rest...>{}, a, n, m, cs, nw, bytes, stream, rc);
+  else
+    return false;
+}
+
+// The streamed layout's warps a block for cs blocks a lane (kStreamWarps), or 0 where
+// none fits.
+int stream_warps(int n, int m_s, int m_d, int cs) {
+  int best = 0, best_warps = 0, best_blocks = 0;
+  for (int nw : kStreamWarps) {
+    const StreamLayout L(n, m_s, m_d, cs, nw);
+    if (!L.fits()) continue;
+    const int by_regs = kStreamMinBlocks * 8 / nw;         // 128 registers x 256 threads x 2
+    const int blocks = imin(by_regs, static_cast<int>(kSharedBytesPerSM / (L.bytes + 1024)));
+    if (blocks * nw > best_warps || (blocks * nw == best_warps && blocks > best_blocks)) {
+      best = nw;
+      best_warps = blocks * nw;
+      best_blocks = blocks;
+    }
+  }
+  return best;
+}
+
+bool holds(const ClusterChoice& c, int n, int m_s, int m_d) {
+  if (!c.registers) return stream_warps(n, m_s, m_d, c.cs) > 0;
+  return RegLayout(n, m_s, m_d, c.cs, c.nw).fits() &&
+         reg_instance(RegShapes{}, nullptr, n, m_s + m_d, c.cs, c.nw, 0, nullptr, nullptr);
+}
+
+// The first layout of kLayouts that holds the shape, or nullptr.
+const ClusterChoice* layout_for(int n, int m_s, int m_d) {
+  for (const ClusterChoice& c : kLayouts)
+    if (holds(c, n, m_s, m_d)) return &c;
+  return nullptr;
+}
+
 }  // namespace
 
 bool structured_admm_cluster_has(int n, int m_s, int m_d) {
@@ -716,12 +936,24 @@ bool structured_admm_cluster_has(int n, int m_s, int m_d) {
 int structured_admm_cluster_launch(const AdmmArgs& a, cudaStream_t stream) {
   const ClusterChoice* c = layout_for(a.n, a.m_s, a.m_d);
   if (c == nullptr || a.C == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned grid = static_cast<unsigned>(a.B) * c->cs;
-  if (c->on_chip) {
-    const ClusterLayout L(a.n, a.m_s, a.m_d, c->cs);
-    return launch_grid(cluster_kernel, grid, c->cs, 32 * L.nw, L.bytes, stream, a);
+  if (c->registers) {
+    const RegLayout L(a.n, a.m_s, a.m_d, c->cs, c->nw);
+    int rc = static_cast<int>(cudaErrorInvalidValue);
+    reg_instance(RegShapes{}, &a, a.n, a.m_s + a.m_d, c->cs, c->nw, L.bytes, stream, &rc);
+    return rc;
   }
   const int nw = stream_warps(a.n, a.m_s, a.m_d, c->cs);
   const StreamLayout L(a.n, a.m_s, a.m_d, c->cs, nw);
-  return launch_grid(stream_kernel, grid, c->cs, 32 * nw, L.bytes, stream, a, nw);
+  return launch_grid(stream_kernel, static_cast<unsigned>(a.B) * c->cs, c->cs, 32 * nw, L.bytes,
+                     stream, a, nw);
 }
+
+#ifdef ADMM_STAGE_CLOCKS
+// The stage clocks into host[0 .. 8), then zeroes them (scripts/admm_kernel_sweep.py).
+extern "C" int structured_admm_stage_clocks(unsigned long long* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, admm_stage_clocks, sizeof(admm_stage_clocks));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[8] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(admm_stage_clocks, zero, sizeof(zero)));
+}
+#endif

@@ -13,8 +13,9 @@ whose lane fits one block (``csrc/structured_admm_generic.cu``: shapes known
 only at run time, such as the sweep's and run_sim's connectivity teams and
 the small fov teams), and ``cluster`` for the larger lanes
 (``csrc/structured_admm_cluster.cu``: one lane a thread-block cluster whose
-blocks read each other's shared memory; the rows of [A_s; A_d] on chip
-where they fit, else streamed from device memory once an iteration).
+blocks push their sums into each other's shared memory; the rows of [A_s;
+A_d] in the blocks' registers where they fit, else streamed from device
+memory once an iteration).
 ``launch_variant`` runs a kernel by name, to time or check it at a shape
 that takes another. On CPU tensors it runs the twin
 ``structured_admm_iterations_ref``, which is the scan body of

@@ -6,7 +6,7 @@
                                          [--folded-at fov|lambda2 LAYOUT ...]
                                          [--generic LAYOUT ...] [--generic-team24 LAYOUT ...]
                                          [--cluster [LAYOUT ...]] [--stream [NW ...]]
-                                         [--timing-check]
+                                         [--stage-clocks [SHAPE ...]] [--timing-check]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and nvcc.
 The package's kernel sources carry one layout per shape: the ``Shape<...>``
@@ -40,20 +40,30 @@ kernel (csrc/structured_admm_generic.cu) at the sweep's team of 10 (45, 135,
 shapes take) changed; --generic-team24 at the 24-agent fov team (59, 143,
 276) on 768 lanes (550 + 50 + 150 + 50), with the ``RegN64Tall`` line
 changed. --cluster times the cluster kernel (csrc/structured_admm_cluster.cu)
-with the copy's ``kLayouts`` line reduced to one layout CS,chip or CS,mem
-(blocks a lane, the rows of [A_s; A_d] in the cluster's shared memory or
-streamed from device memory; none named: 2, 4 and 8 on chip, 8 and 16
-streamed) at the fov teams of 96, 128, 256 and 400 agents on 96, 512, 256
-and 256 lanes (the lanes of one launch of benchmarks/swarm.py's step: one
-ring of 96, 4 rings of 128, a lane chunk of 256; 550 + 50 + 150 + 50) and
-the connectivity teams of 128 and 256 robots on 128 and 256 lanes (one
-run_sim team; 150 + 50 + 150 + 50); a layout that does not hold a shape is
-reported as refused. Inputs of the cluster shapes repeat 8 distinct lanes.
+with the copy's ``kLayouts`` line reduced to one layout CS,chip[,NW] or
+CS,mem (blocks a lane, the rows of [A_s; A_d] in the registers of NW warps a
+block (default 16) or streamed from device memory; none named: 2, 4 and 8 in
+registers of 16 warps, 2, 4 and 8 of 8 warps, 8 streamed) at the fov teams
+of 40, 64, 96, 128, 256 and 400 agents on 760, 512, 96, 512, 256 and 256
+lanes (the lanes of one launch of benchmarks/swarm.py's step: 19 rings of
+40, 8 of 64, one ring of 96, 4 rings of 128, a lane chunk of 256; 550 + 50 +
+150 + 50) and the connectivity teams of 128 and 256 robots on 128 and 256
+lanes (one run_sim team; 150 + 50 + 150 + 50); a layout that does not hold
+a shape is reported as refused (the report names the register layout's
+instance the shape takes, RegShape<NW, RW, TC>). Inputs of the cluster
+shapes repeat 8 distinct lanes.
 --stream times the streamed layout of the cluster kernel with the copy's
 ``kStreamWarps`` line reduced to one count NW of warps a block (none named:
 8 and 4; at most 8, the kernel's launch bounds) at the fov teams of 256 and
 400 agents on 256 lanes (550 + 50 + 150 + 50); a count that does not fit a
 block is reported as refused.
+--stage-clocks builds a copy of csrc/ with ADMM_STAGE_CLOCKS defined (the
+cluster kernel's STAGE markers then count clocks; the package's build leaves
+them empty) and prints, for one launch of 150 iterations at each SHAPE (none
+named: cluster_fov128 and cluster_fov64, on the lanes of one launch of their
+steps), the clocks thread 0 of block 0 spent an iteration in each stage of
+the loop: the column sums, the block meeting, barrier 1, RHS, xt = C RHS,
+barrier 2, the row sums and updates.
 A LAYOUT of the generic kernel is TC,MAXW[,P[,MINB]]: GenericShape<TC, MAXW,
 P, MINB> (column slots a lane, warps a block at most, threads a row of C
 (default 4), blocks an SM for the launch bounds (default 1)). --timing-check builds
@@ -111,7 +121,8 @@ SHAPES = {"fov": Target(8192, (43, 127, 84), PHASES, "Fov", TILED, "tiled", None
           # --cluster: the kLayouts line
           **{f"cluster_fov{A}": Target(lanes, fused_admm.fov_team_shape(A), SWARM_FOV_PHASES,
                                        "kLayouts", CLUSTER, "cluster", None)
-             for A, lanes in ((96, 96), (128, 512), (256, 256), (400, 256))},
+             for A, lanes in ((40, 760), (64, 512), (96, 96), (128, 512), (256, 256),
+                              (400, 256))},
           **{f"cluster_conn{R}": Target(R, (35 + R, 125 + R, 2 * R - 2), RUN_SIM_PHASES,
                                         "kLayouts", CLUSTER, "cluster", None)
              for R in (128, 256)},
@@ -122,9 +133,12 @@ SHAPES = {"fov": Target(8192, (43, 127, 84), PHASES, "Fov", TILED, "tiled", None
 GENERIC_TARGETS = {"generic": ("generic_sweep_r10", "generic_run_sim"),
                    "generic_team24": ("generic_team24",)}
 CLUSTER_TARGETS = tuple(name for name in SHAPES if name.startswith("cluster"))
-CLUSTER_LAYOUTS = ["2,chip", "4,chip", "8,chip", "8,mem", "16,mem"]
+CLUSTER_LAYOUTS = ["2,chip", "4,chip", "8,chip", "2,chip,8", "4,chip,8", "8,chip,8", "8,mem"]
 STREAM_TARGETS = tuple(name for name in SHAPES if name.startswith("stream"))
 STREAM_LAYOUTS = ["8", "4"]
+STAGE_TARGETS = ["cluster_fov128", "cluster_fov64"]
+STAGES = ("column sums", "block meeting", "barrier 1", "RHS", "xt = C RHS", "barrier 2",
+          "row sums and updates")
 KW = dict(sigma=1e-6, alpha=1.6)
 
 
@@ -144,10 +158,12 @@ def cuda_ms(fn, reps=3, spin=True):
     return start.elapsed_time(end) / reps
 
 
-def build(layouts: dict):
-    """Compile a copy of csrc/ with each shape's layout; returns (library, ptxas report)."""
-    out = ROOT / "build" / "sweep" / "_".join(
+def build(layouts: dict, defines=()):
+    """Compile a copy of csrc/ with each shape's layout and the macros ``defines``;
+    returns (library, ptxas report)."""
+    out = ROOT / "build" / "sweep" / ("_".join(
         f"{name}{layout}" for name, layout in layouts.items()).replace(",", "-")
+        + "".join(f"_{d}" for d in defines))
     out.mkdir(parents=True, exist_ok=True)
     for src in _build.SOURCES + _build.HEADERS:
         text = src.read_text()
@@ -158,11 +174,13 @@ def build(layouts: dict):
                 text, n = re.subn(r"constexpr int kStreamWarps\[\] = \{[^;]*\};",
                                   f"constexpr int kStreamWarps[] = {{{layout}}};", text)
                 n = min(n, 1)                         # every stream target names the same line
-            elif name.startswith("cluster"):         # one layout: CS,chip or CS,mem
-                cs, place = layout.split(",")
-                text, n = re.subn(r"constexpr ClusterChoice kLayouts\[\] = \{.*\};",
+            elif name.startswith("cluster"):         # one layout: CS,chip[,NW] or CS,mem
+                cs, place, *nw = layout.split(",")
+                chip = place == "chip"
+                text, n = re.subn(r"constexpr ClusterChoice kLayouts\[\] = \{.*?\};",
                                   f"constexpr ClusterChoice kLayouts[] = {{{{{cs}, "
-                                  f"{'true' if place == 'chip' else 'false'}}}}};", text)
+                                  f"{'true' if chip else 'false'}, "
+                                  f"{(nw or ['16'])[0] if chip else '0'}}}}};", text, flags=re.S)
                 n = min(n, 1)                         # every cluster target names the same line
             elif name.startswith("generic"):           # the whole line: another layout
                 fields = layout.split(",")
@@ -179,7 +197,8 @@ def build(layouts: dict):
                 raise RuntimeError(f"{src.name}: {n} lines name the layout of {alias}")
         (out / src.name).write_text(text)
     lib = out / "kernels.so"
-    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
+    cmd = [_build.nvcc(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defines), "-shared", "-o",
+           str(lib),
            *(str(out / src.name) for src in _build.SOURCES)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
@@ -191,8 +210,13 @@ def build(layouts: dict):
         key, kernel = f"ShapeILi{n}ELi{m_s}ELi{m_d}E", f"{SHAPES[name].variant}_kernel"
         if name.startswith("stream"):
             key = kernel = "stream_kernel"
-        elif name.startswith("cluster"):              # cluster_kernel (on chip) or stream_kernel
-            key = kernel = "cluster_kernel" if layouts[name].endswith("chip") else "stream_kernel"
+        elif name.startswith("cluster"):              # an instance of reg_kernel, or stream_kernel
+            cs, place, *nw = layouts[name].split(",")
+            key = kernel = "stream_kernel"
+            if place == "chip":
+                inst = reg_instance((out / CLUSTER).read_text(), SHAPES[name].shape, int(cs),
+                                    int((nw or [16])[0]))
+                key, kernel = "reg_kernel", "reg_kernelILi%dELi%dELi%dE" % (inst or (0, 0, 0))
         elif name.startswith("generic"):                # GenericShape<TC, MAXW, P, MINB>
             tc, maxw, *rest = (f.strip() for f in layouts[name].split(","))
             p, minb = (rest + ["4", "1"][len(rest):])[:2]
@@ -204,10 +228,44 @@ def build(layouts: dict):
     return fused_admm.bind(ctypes.CDLL(str(lib))), report
 
 
+def reg_instance(text, shape, cs, nw):
+    """(NW, RW, TC) of the first RegShape of the source ``text`` that holds the
+    shape with cs blocks of nw warps (the kernel's reg_instance), or None."""
+    start = text.index("using RegShapes")
+    n, m = shape[0], shape[1] + shape[2]
+    cdiv = lambda a, b: -(-a // b)
+    for NW, RW, TC in (tuple(map(int, t)) for t in re.findall(
+            r"RegShape<(\d+), (\d+), (\d+)>", text[start:text.index(";", start)])):
+        if NW == nw and cdiv(n, 32) <= TC and cdiv(cdiv(m, cs), nw) <= RW:
+            return NW, RW, TC
+    return None
+
+
 def step_ms(lib, variant, args, phases, reps=3):
     per = {it: cuda_ms(lambda: fused_admm.launch_variant(lib, variant, args, iters=it, **KW), reps)
            for it in sorted(set(phases))}
     return sum(per[it] for it in phases), per
+
+
+def stage_clocks(names, iters=150):
+    """Clocks an iteration of each stage of the cluster kernel's loop (thread 0 of block 0, one
+    launch of ``iters`` iterations after a warm-up) at the shapes ``names``."""
+    lib, report = build({}, defines=("ADMM_STAGE_CLOCKS",))
+    lib.structured_admm_stage_clocks.argtypes = [ctypes.c_void_p]
+    got = np.zeros(8, np.uint64)
+    for name in names:
+        B, shape = SHAPES[name].lanes, SHAPES[name].shape
+        args = [torch.from_numpy(a).cuda() for a in fused_admm.random_phase_inputs(
+            np.random.default_rng(1), B, *shape, distinct=8, operand="c")]
+        for _ in range(2):                            # a warm-up launch, then the one read
+            fused_admm.launch_variant(lib, "cluster", args, iters=iters, **KW)
+            torch.cuda.synchronize()
+            if lib.structured_admm_stage_clocks(got.ctypes.data):
+                raise RuntimeError("reading the stage clocks failed")
+        per = got[:len(STAGES)].astype(np.float64) / iters
+        print(f"stage clocks, {name} {shape} at B={B}, {iters} iterations: "
+              + ", ".join(f"{stage} {c:.0f}" for stage, c in zip(STAGES, per))
+              + f"; an iteration {per.sum():.0f} clocks", flush=True)
 
 
 def timing_check(windows=10, reps=3):
@@ -249,11 +307,14 @@ def main():
                     help="TC,MAXW[,P[,MINB]] layouts of the generic kernel at the 24-agent fov "
                          "team, e.g. 2,16")
     ap.add_argument("--cluster", nargs="*",
-                    help="CS,chip or CS,mem layouts of the cluster kernel (none named: "
+                    help="CS,chip[,NW] or CS,mem layouts of the cluster kernel (none named: "
                          + " ".join(CLUSTER_LAYOUTS) + ")")
     ap.add_argument("--stream", nargs="*",
                     help="warps a block of the cluster kernel's streamed layout (none named: "
                          + " ".join(STREAM_LAYOUTS) + ")")
+    ap.add_argument("--stage-clocks", nargs="*", choices=CLUSTER_TARGETS,
+                    help="clocks an iteration of each stage of the cluster kernel's loop (none "
+                         "named: " + " ".join(STAGE_TARGETS) + ")")
     ap.add_argument("--timing-check", action="store_true",
                     help="time the package's generic kernel with and without the spin")
     opt = ap.parse_args()
@@ -289,8 +350,10 @@ def main():
                          capture_output=True, text=True, check=True).stdout.strip())
     if opt.timing_check:
         timing_check()
-        if not asked:
-            return
+    if opt.stage_clocks is not None:
+        stage_clocks(opt.stage_clocks or STAGE_TARGETS)
+    if (opt.timing_check or opt.stage_clocks is not None) and not asked:
+        return
     if not asked:           # no option: the three shapes of the 8- and 4-robot steps
         asked = {"fov": ["1,4,160", "1,4,128", "2,2,128"], "conn": ["2,4,64", "1,8,64", "2,4,96"],
                  "lambda2": ["2,4,64,2,12", "2,4,64,2,9", "2,4,64,7,9"]}

@@ -269,12 +269,12 @@ def _need_gpu():
     (SWEEP_R10, 150, "generic"),
     (TEAM24_FOV, 16, "generic"),     # the 24-agent fov team: registers too, one block an SM
     (TEAM29_FOV, 16, "generic"),     # the largest fov team generic holds
-    (TEAM40_FOV, 16, "cluster"),     # past generic's registers: a lane on 2 or 4 SMs, rows on chip
+    (TEAM40_FOV, 16, "cluster"),     # past generic's registers: a lane on 2 or 4 SMs, in registers
     (TEAM64_FOV, 8, "cluster"),
     (TEAM40_CONN, 16, "cluster"),
     ((162, 2, 2), 3, "cluster"),     # n above every generic layout
     ((165, 4, 4), 3, "cluster"),
-    (TEAM85_FOV, 3, "cluster"),      # the first fov team past FromMemory: rows on chip
+    (TEAM85_FOV, 3, "cluster"),      # the first fov team past FromMemory: rows in registers
     (TEAM96_FOV, 3, "cluster"),
     (TEAM128_FOV, 2, "cluster"),
     (fused_admm.fov_team_shape(160), 2, "cluster"),   # rows and C streamed
@@ -367,7 +367,7 @@ def test_every_team_takes_a_redesigned_kernel_on_gpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,B", [((420, 10, 2), 3),             # C of 1.41 MB: 8 blocks on chip
+@pytest.mark.parametrize("shape,B", [((420, 10, 2), 3),             # C of 1.41 MB: rows streamed
                                      (fused_admm.fov_team_shape(512), 1)])  # rows and C streamed
 def test_shapes_past_the_old_limit_launch_cluster_on_gpu(shape, B):
     """A lane whose float64 C exceeded what the first cluster layouts held

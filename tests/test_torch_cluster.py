@@ -2,13 +2,16 @@
 one lane a thread-block cluster) where there is no card, and the slice at
 the team sizes that take it.
 
-``cluster_loop`` is the loop as the kernel's on-chip layout computes it, in
-plain PyTorch: xt = C RHS in float64 with the lane's C, the operand the
+``register_loop`` is the loop as the kernel's register layout computes it,
+in plain PyTorch: xt = C RHS in float64 with the lane's C, the operand the
 caller factors; the rows of [A_s; A_d] split over the cs blocks of the
-cluster as the kernel splits them, each block's rows in chunks of 32 over
-its warps; the column sums of [A_s; A_d]'r met as the kernel meets them
-(each warp's chunks, then the block's warps in order, then the blocks in
-rank order); [A_s; A_d] xt and the row updates in float32. ``stream_loop``
+cluster as the kernel splits them, each block's rows in contiguous strips
+over its nw warps (``register_groups``); the column sums of [A_s; A_d]'r met
+as the kernel meets them (each warp's strip, then the block's even and odd
+warps each in order and the two sums, then the blocks' pushed partials in
+rank order); [A_s; A_d] xt and
+the row updates in float32 (the kernel meets a row's lane partials by a
+butterfly of shuffles: an order within one float32 sum). ``stream_loop``
 is the streamed layout's (rows read from device memory once an iteration):
 the same loop with each block's rows in chunks of 4, those of A_s first,
 chunk i to warp i % nw, the column sums of the next iteration formed in the
@@ -28,6 +31,8 @@ tests/test_torch_slice.py.
 """
 
 import functools
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -39,6 +44,12 @@ from mpc_cbf_torch.ops.qp.fused_admm import random_phase_inputs, structured_admm
 from torch_parity_cases import one_torch_thread  # noqa: F401  (autouse)
 
 KW = dict(iters=40, sigma=1e-6, alpha=1.6)
+SOURCE = (pathlib.Path(fused_admm.__file__).resolve().parents[2] / "csrc"
+          / "structured_admm_cluster.cu")
+
+
+def cdiv(a, b):
+    return -(-a // b)
 
 
 def part_start(count, cs, k):
@@ -47,22 +58,14 @@ def part_start(count, cs, k):
     return k * count // cs
 
 
-def block_warps(m, cs):
-    """Warps a block of the on-chip layout: one a chunk of 32 of the most rows
-    a block holds, 4 to 16."""
-    rows = -(-m // cs)
-    return min(16, max(4, -(-rows // 32)))
-
-
-def chip_groups(m, m_s, cs):
-    """The rows of each warp of each block of the on-chip layout: chunk ch of
-    block k's rows (32 rows a chunk) goes to warp ch % nw."""
-    nw = block_warps(m, cs)
+def register_groups(m, cs, nw):
+    """The rows of each warp of each block of the register layout: warp w of
+    block k holds the strip [part_start(rows, nw, w), part_start(rows, nw, w +
+    1)) of the block's rows (the kernel's ``sb`` and ``cnt``)."""
     groups = []
     for k in range(cs):
-        rb, re = part_start(m, cs, k), part_start(m, cs, k + 1)
-        chunks = [torch.arange(c, min(c + 32, re)) for c in range(rb, re, 32)]
-        groups.append([torch.cat(chunks[w::nw]) if chunks[w::nw] else torch.arange(0)
+        rb, rows = part_start(m, cs, k), part_start(m, cs, k + 1) - part_start(m, cs, k)
+        groups.append([torch.arange(rb + part_start(rows, nw, w), rb + part_start(rows, nw, w + 1))
                        for w in range(nw)])
     return groups
 
@@ -87,10 +90,12 @@ def stream_groups(m, m_s, cs, nw):
 
 
 def _cluster_model(groups, Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, C,
-                   x0, zs0, zd0, ys0, yd0, *, iters, sigma, alpha, sums=None):
+                   x0, zs0, zd0, ys0, yd0, *, iters, sigma, alpha, sums=None, halves=False):
     """The loop of a cluster layout whose warps hold the rows ``groups``
     [block][warp] (module docstring); C [B, n, n] float64. ``sums``: the dtype
-    the row and column sums and RHS accumulate in (None: the state's)."""
+    the row and column sums and RHS accumulate in (None: the state's).
+    ``halves``: a block meets its even warps and its odd warps each in order,
+    then the two sums (the register layout); else all its warps in order."""
     dt, hi = qb.dtype, torch.float64
     acc = sums or dt
     B, n = qb.shape
@@ -104,9 +109,12 @@ def _cluster_model(groups, Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_
         r = rho * z - y
         s = torch.zeros(B, n, dtype=acc)
         for warps in groups:                                      # the blocks in rank order
-            block = torch.zeros(B, n, dtype=acc)
-            for rows in warps:                                    # the block's warps in order
-                block = block + torch.einsum("bij,bi->bj", Aa[:, rows], r[:, rows].to(acc))
+            parts = [torch.einsum("bij,bi->bj", Aa[:, rows], r[:, rows].to(acc)) for rows in warps]
+            if halves:
+                block = sum(parts[0::2], torch.zeros(B, n, dtype=acc)) + \
+                    sum(parts[1::2], torch.zeros(B, n, dtype=acc))
+            else:                                                 # the block's warps in order
+                block = sum(parts, torch.zeros(B, n, dtype=acc))
             s = s + block
         RHS = (sigma * x - qb).to(acc) + s
         xt = torch.einsum("bij,bj->bi", C.to(hi), RHS.to(hi)).to(dt)
@@ -119,11 +127,12 @@ def _cluster_model(groups, Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_
     return x, z[:, :m_s], z[:, m_s:], y[:, :m_s], y[:, m_s:]
 
 
-def cluster_loop(*args, iters, sigma, alpha, cs):
-    """The loop as the ``cluster`` kernel computes it with its rows on chip,
-    cs blocks a lane (module docstring)."""
-    m_s, m = args[1].shape[0], args[1].shape[0] + args[6].shape[1]
-    return _cluster_model(chip_groups(m, m_s, cs), *args, iters=iters, sigma=sigma, alpha=alpha)
+def register_loop(*args, iters, sigma, alpha, cs, nw):
+    """The loop as the ``cluster`` kernel computes it with its rows in
+    registers, cs blocks of nw warps a lane (module docstring)."""
+    m = args[1].shape[0] + args[6].shape[1]
+    return _cluster_model(register_groups(m, cs, nw), *args, iters=iters, sigma=sigma, alpha=alpha,
+                          halves=True)
 
 
 def stream_loop(*args, iters, sigma, alpha, cs, nw):
@@ -136,11 +145,70 @@ def stream_loop(*args, iters, sigma, alpha, cs, nw):
                           alpha=alpha, sums=torch.float64)
 
 
-# (lanes, shape, blocks a lane, iterations): a 128-robot connectivity team and a
-# synthetic shape with few rows at the cluster sizes the kernel gives them; a
-# 128-agent fov team (163, 247, 1524) on one lane for a short phase
+def source_layouts():
+    """(kLayouts, RegShapes) as csrc/structured_admm_cluster.cu writes them:
+    [(blocks, registers, warps)] in the order tried, and the register layout's
+    instances [(warps, rows a strip, column slots)] in the order tried."""
+    text = SOURCE.read_text()
+    def statement(head):
+        start = text.index(head)
+        return text[start:text.index(";", start)]
+    layouts = [(int(cs), reg == "true", int(nw)) for cs, reg, nw in re.findall(
+        r"\{(\d+), (true|false), (\d+)\}", statement("constexpr ClusterChoice kLayouts"))]
+    shapes = [tuple(map(int, t)) for t in
+              re.findall(r"RegShape<(\d+), (\d+), (\d+)>", statement("using RegShapes"))]
+    return layouts, shapes
+
+
+def register_bytes(n, m, cs, nw):
+    """The shared memory of a block of the register layout (the kernel's
+    ``RegLayout``)."""
+    rows, crows, p = cdiv(m, cs), cdiv(n, cs), 8   # p: the kernel's kP threads a row of C
+    round_up = lambda a, b: cdiv(a, b) * b
+    nv, ldc = round_up(n, 4), round_up(n + p, 2 * p) - p
+    rhs = round_up(8 * crows * ldc, 16)
+    end = rhs + 4 * (4 * nv + cs * nv + nw * nv + nw * round_up(cdiv(rows, nw), 4)
+                     + 5 * round_up(rows, 4))
+    return round_up(end, 16)
+
+
+def register_layout(n, m_s, m_d):
+    """(blocks, warps, (warps, rows a strip, column slots)) of the register
+    layout that runs the shape (the first of kLayouts that holds it, then the
+    first instance that holds it), or None where the shape is streamed."""
+    m = m_s + m_d
+    layouts, shapes = source_layouts()
+    for cs, registers, nw in layouts:
+        if not registers:
+            return None
+        if register_bytes(n, m, cs, nw) > 232448:
+            continue
+        for shape in shapes:
+            NW, RW, TC = shape
+            if NW == nw and cdiv(n, 32) <= TC and cdiv(cdiv(m, cs), nw) <= RW:
+                return cs, nw, shape
+    return None
+
+
+def kernel_warps(shape, cs):
+    """The warps the kernel gives a block of cs blocks at this shape: those of
+    the first register layout of that many blocks that holds it."""
+    n, m = shape[0], shape[1] + shape[2]
+    layouts, shapes = source_layouts()
+    return next(nw for c, registers, nw in layouts if registers and c == cs
+                and any(s[0] == nw and cdiv(n, 32) <= s[2] and cdiv(cdiv(m, cs), nw) <= s[1]
+                        for s in shapes))
+
+
+# (lanes, shape, blocks a lane, iterations): a 128-robot connectivity team (on 4
+# blocks of 16 warps, and on the 2 blocks of 8 warps the kernel gives it) and a
+# synthetic shape with few rows at the cluster sizes the kernel gives them (at 8
+# blocks some strips of 16 warps hold no row); a 128-agent fov team (163, 247,
+# 1524) and a 140-agent one (175, 259, 1668: 8 blocks of 8 warps) on one lane for
+# a short phase. Each on the warps the kernel gives it at that many blocks
 CASES = [(2, (163, 253, 254), 4, 40), (3, (170, 20, 12), 2, 40), (2, (170, 20, 12), 8, 40),
-         (1, fused_admm.fov_team_shape(128), 8, 8)]
+         (1, fused_admm.fov_team_shape(128), 8, 8), (2, (163, 253, 254), 2, 40),
+         (1, fused_admm.fov_team_shape(140), 8, 8)]
 # (lanes, shape, blocks, warps a block, iterations) of the streamed layout: a
 # 256-robot connectivity team (its rows straddle A_s's last row inside a
 # block), a 400-agent fov team (435, 519, 4788) on one lane for a short phase,
@@ -158,11 +226,11 @@ def _inputs(B, shape, operand=None):
 
 @pytest.mark.parametrize("B,shape,cs,iters", CASES)
 def test_cluster_loop_matches_twin(B, shape, cs, iters):
-    """The cluster kernel's loop against the twin, at the bar of two float32
-    loops (they differ by the order of the column sums)."""
+    """The cluster kernel's register layout against the twin, at the bar of
+    two float32 loops (they differ by the order of the column and row sums)."""
     arrays = [torch.from_numpy(a) for a in _inputs(B, shape)]
     kw = dict(KW, iters=iters)
-    out_c = cluster_loop(*arrays, **kw, cs=cs)
+    out_c = register_loop(*arrays, **kw, cs=cs, nw=kernel_warps(shape, cs))
     out_t = structured_admm_iterations_ref(*arrays, **kw)
     for name, c, t in zip(("x", "zs", "zd", "ys", "yd"), out_c, out_t):
         assert c.shape == t.shape and c.dtype == torch.float32
@@ -171,13 +239,14 @@ def test_cluster_loop_matches_twin(B, shape, cs, iters):
 
 @pytest.mark.parametrize("B,shape,cs,iters", CASES)
 def test_cluster_loop_matches_pallas_kernel(B, shape, cs, iters):
-    """The cluster kernel's loop against the JAX package's kernel itself
-    (interpret mode, with the Woodbury WK of the same draw) on the same
+    """The cluster kernel's register layout against the JAX package's kernel
+    itself (interpret mode, with the Woodbury WK of the same draw) on the same
     inputs, at the bar the twin is held to."""
     import jax.numpy as jnp
     from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
     kw = dict(KW, iters=iters)
-    out_c = cluster_loop(*[torch.from_numpy(a) for a in _inputs(B, shape)], **kw, cs=cs)
+    out_c = register_loop(*[torch.from_numpy(a) for a in _inputs(B, shape)], **kw, cs=cs,
+                          nw=kernel_warps(shape, cs))
     out_p = pallas(*[jnp.asarray(a) for a in _inputs(B, shape, "wk")], interpret=True,
                    block=128, **kw)
     for name, c, p in zip(("x", "zs", "zd", "ys", "yd"), out_c, out_p):
@@ -221,6 +290,50 @@ def test_the_blocks_split_the_rows(m, cs):
     sizes = np.diff(starts)
     assert starts[0] == 0 and starts[-1] == m
     assert sizes.min() >= 1 and sizes.max() - sizes.min() <= 1
+
+
+@pytest.mark.parametrize("m,cs,nw", [(1771, 8, 16), (2005, 8, 16), (891, 8, 16), (627, 2, 16),
+                                    (939, 4, 16), (32, 8, 16), (1771, 8, 8)])
+def test_the_register_strips_take_every_row_once(m, cs, nw):
+    """The register layout's strips cover the rows once, in order, each within
+    the block's rows, none longer than the longest a block's warps get."""
+    groups = register_groups(m, cs, nw)
+    assert torch.equal(torch.cat([w for warps in groups for w in warps]), torch.arange(m))
+    for k, warps in enumerate(groups):
+        rows = torch.cat(warps)
+        assert rows.numel() == 0 or (rows.min() >= part_start(m, cs, k)
+                                     and rows.max() < part_start(m, cs, k + 1))
+        assert max(len(w) for w in warps) <= cdiv(cdiv(m, cs), nw)
+
+
+TEAMS = ([("fov", A, fused_admm.fov_team_shape(A)) for A in range(30, 147) if A != 32]
+         + [("connectivity", R, (35 + R, 125 + R, 2 * R - 2)) for R in range(30, 258)])
+
+
+def test_the_register_layout_holds_every_on_chip_team():
+    """Every fov team of 30-146 agents (but 32, the folded kernel's) and every
+    connectivity team of 30-257 robots, the teams whose rows sat on chip
+    before, takes the register layout: the fewest blocks (2, 4, 8) whose
+    strips fit an instance, whose strips take every row once, whose rows fit
+    the registers (RW x TC under the registers a thread may have: 255 at 8
+    warps, 128 at 16; a block's rows under an SM's 65 536) and whose shared
+    memory fits a block. ptxas's report of no spill is held on the card
+    (chip_smoke.py)."""
+    layouts, shapes = source_layouts()
+    for family, size, (n, m_s, m_d) in TEAMS:
+        got = register_layout(n, m_s, m_d)
+        assert got is not None, f"{family} {size} {(n, m_s, m_d)} is streamed"
+        cs, nw, (NW, RW, TC) = got
+        m = m_s + m_d
+        assert NW == nw and cdiv(n, 32) <= TC and cdiv(cdiv(m, cs), nw) <= RW
+        assert RW * TC < min(255, 65536 // (32 * nw))
+        assert cdiv(m, cs) * 32 * TC <= 65536 and register_bytes(n, m, cs, nw) <= 232448
+        fewer = [c for c, registers, w in layouts if registers and c < cs
+                 and any(s[0] == w and cdiv(n, 32) <= s[2] and cdiv(cdiv(m, c), w) <= s[1]
+                         for s in shapes)]
+        assert not fewer, f"{family} {size}: {fewer} blocks would hold it"
+        rows = torch.cat([w for warps in register_groups(m, cs, nw) for w in warps])
+        assert torch.equal(rows, torch.arange(m))
 
 
 @pytest.mark.parametrize("m,m_s,cs,nw", [(891, 381, 8, 8), (5307, 519, 8, 8), (39, 30, 8, 8)])
