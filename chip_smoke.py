@@ -7,13 +7,17 @@ sm_90a: an H100). It
 1. prints the card (nvidia-smi name and power limit);
 2. builds the CUDA kernels from csrc/ into build/kernels/ (one nvcc per
    source, started together) and times it; fails if ptxas reports a spill
-   in an instance of the cluster kernel's register layout;
+   in an instance of the cluster kernel's register layout or of the folded
+   kernel (both hold the rows in registers);
 3. holds every variant of the fused ADMM kernel against its plain PyTorch
    twin at 40 iterations to rtol = atol = 2e-4, each through the wrapper at
-   a shape that takes it: tiled at the fov, connectivity and λ₂/CLF
-   connectivity shapes (1001 lanes: a ragged last block; 3 lanes: fewer
-   than a block holds), folded at the 32-agent connectivity shapes (36,
-   126, 62) on 1001 and 3 lanes and the 32-agent fov shapes (67, 151, 372)
+   a shape that takes it: folded at the fov flagship's shapes (43, 127,
+   84; the main path) on 1001 and 3 lanes and for the step's longest phase
+   of 150 iterations, tiled there by name on WK against the Woodbury twin,
+   tiled at the connectivity and λ₂/CLF connectivity shapes (1001 lanes: a
+   ragged last block; 3 lanes: fewer than a block holds) and folded there
+   by name, folded at the 32-agent connectivity shapes (36,
+   126, 62) on 1001 and 3 lanes (and for its longest phase, 50) and the 32-agent fov shapes (67, 151, 372)
    on 64 and 3 lanes and, on 64 lanes, for the 550 iterations of the step's
    longest phase, generic at the shapes (38, 128, 4) and the 3 lanes of
    run_sim --controller connectivity on a 3-robot team (step 17), at every
@@ -38,7 +42,10 @@ sm_90a: an H100). It
    raises), and that the tiled kernel takes exactly the shapes whose
    operand is WK;
 4. times kernel and twin for each rho phase length of a control step (150 +
-   50 cold, 32 + 32 warm) at 8192 fov and 32768 connectivity lanes, and at
+   50 cold, 32 + 32 warm) at 8192 fov and 32768 connectivity lanes (fov:
+   folded, and tiled by name; connectivity and λ₂/CLF: tiled, and folded by
+   name), fails unless the fov flagship's folded kernel and C builds take
+   less device time than the tiled kernel and the Woodbury builds, and at
    the lanes and phase lengths a launch of steps 7 and 7b gets: the folded
    kernel at 4096 lanes (4 x 50 iterations) and at one lane chunk of 2048
    (550 + 50 + 150 + 50), generic at the 3 lanes of one run_sim team (150
@@ -48,7 +55,8 @@ sm_90a: an H100). It
    512, 96 and 512 lanes; a lane chunk of 256), at a lane chunk of a
    256-agent step and at one run_sim team of 128 and of 256 connectivity
    robots; for every kernel that takes C also
-   the C builds of the step's phases (folded_c: cuBLAS and cuSOLVER); prints
+   the C builds of the step's phases (folded_c: cuBLAS and cuSOLVER), for
+   tiled the Woodbury builds (woodbury); prints
    each time beside its bound
    (the slowest of the float32 operations, the float64 operations and the
    bytes, from the shapes and the card's peaks; the operations are the
@@ -58,10 +66,11 @@ sm_90a: an H100). It
    writes);
 5. drives the main path (StructuredIMPC(FovIMPCCBF) with the structured
    ADMM (iters 200, tail 64) on 8192 lanes of bench.py's fov recipe),
-   checks that it launched the tiled kernel 4 times per call and that every
-   flyable lane is finite, times 5 calls, and runs the same call through
-   the plain loop: the usable-lane rates must agree within 1 point and stay
-   at or above 0.70;
+   checks that it launched the folded kernel 4 times per call and that every
+   flyable lane is finite, times 5 calls, runs the same call with the
+   Woodbury WK through the tiled kernel by name (the route must not lower the
+   usable rate) and through the plain loop: the usable-lane rates must agree
+   within 1 point and stay at or above 0.70;
 6. runs one connectivity control step at 32768 lanes (tiled kernel, 4
    launches, usable >= 0.99);
 7. runs one 32-agent control step of benchmarks/swarm.py's recipe (128
@@ -136,8 +145,8 @@ sm_90a: an H100). It
     generic kernel 4 times a step (320 launches: the generic row of the
     kernels record);
 18. bench.py's +polish mode, fov and connectivity at 8192 lanes:
-    StructuredConfig(iters=200, iters_tail=64, polish=True), the f32 ADMM (tiled
-    kernel, 4 launches a call, asserted) and the f64 active-set polish on the
+    StructuredConfig(iters=200, iters_tail=64, polish=True), the f32 ADMM (folded
+    kernel for fov, tiled for connectivity, 4 launches a call, asserted) and the f64 active-set polish on the
     card: finite flyable lanes, certified lanes a subset of usable ones, usable
     at or above the raw ADMM's in the same run, connectivity certified >= 0.99
     (fov's rate reported); 3 timed calls, the polish's share from a stage
@@ -190,14 +199,16 @@ loop flies 10 steps (60 at first, then 20), the fov IPM times 3 calls, not
 call each, not three; the CBF-only loops fly 30 steps, not 60.
 
 Expected on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md; the wall times
-follow the host): every kernel variant within 9.2e-5 of its twin (7.6e-5 /
-1.1e-4 after 550 iterations); one fov control step's four phases at 8192
-lanes 15.9-16.0 ms in the tiled kernel (bound 1.17 ms, 7.4 % of it reached;
-twin 186-272 ms); connectivity at 32768 lanes 19.3-19.4 ms (bound 2.45 ms,
-12.7 %); the λ₂/CLF step at 32768 lanes 20.5-20.6 ms (bound 2.60 ms); the
-folded kernel 2.9 ms for the 32-agent connectivity step's four launches at
-4096 lanes (bound 0.33 ms) and 53.9 ms for the 32-agent fov step's four
-launches at 4096 lanes (bound 6.86 ms, 12.7 %); generic 0.48 ms for one
+follow the host): every kernel variant within 1.3e-4 of its twin (under
+6.2e-5 for folded, also after 550 iterations); one fov control step's four
+phases at 8192 lanes 7.1 ms in the folded kernel (bound 1.17 ms, 16.4 % of
+it reached; twin 157 ms) and 11.3 ms of C builds, against 16.0 ms in the
+tiled kernel by name and 89 ms of Woodbury builds; connectivity at 32768
+lanes 19.4 ms (bound 2.45 ms, 12.6 %; folded by name 19.1); the λ₂/CLF
+step at 32768 lanes 20.6 ms (bound 2.60 ms; folded by name 19.1); the
+folded kernel 2.07 ms for the 32-agent connectivity step's four launches at
+4096 lanes (bound 0.33 ms) and 39.8 ms for the 32-agent fov step's four
+launches at 4096 lanes (bound 6.86 ms, 17.2 %); generic 0.48 ms for one
 run_sim connectivity step on 3 lanes, 0.48-0.62 ms at the sweep's teams,
 9.1 ms at the 24-agent fov shapes on 768 lanes; cluster 46.5 / 74.7 ms at
 the 40- / 64-agent steps, 21.3 ms at the 96-agent ring, 193 ms at the
@@ -206,10 +217,12 @@ chunk of 256 agents (rows and C streamed; twin 776 ms) and 941 ms at one of
 400 agents (twin 1540 ms), 16.0-17.7 / 84.2-84.8 ms at one team of
 128 / 256 connectivity robots; the C builds (folded_c) beside each, from
 0.47 ms (3 lanes) to 105 ms (256 lanes of 400 agents) a step's four phases;
-fov ADMM usable 0.7097 (plain route 0.7095), 150-415 ms per call;
+fov ADMM usable 0.7101 (plain route 0.7101, flags equal; the tiled kernel
+on WK 0.7097), 52-71 ms per call;
 connectivity ADMM usable 0.9933, 26-31 ms; 32-agent connectivity usable
-1.0000, 11-12 ms (f32 IPM: 1.0000, 290-450 ms); 32-agent fov usable 0.9900
-with the kernel and with the plain loop, 128-133 ms, peak 2.05 GiB (f32 IPM:
+1.0000, 10-12 ms (f32 IPM: 1.0000, 225-450 ms); 32-agent fov usable 0.9902
+with the kernel and 0.9900 with the plain loop (one lane's flag differs),
+104 ms, peak 2.05 GiB (f32 IPM:
 usable 1.0000, 436-520 ms, peak 1.39 GiB); 24-agent fov usable 0.9935
 through the generic kernel and the plain loop, flags equal on every lane;
 40 / 64 / 96 / 128-agent steps 92-119 / 126-137 / 88-111 / 274-293 ms
@@ -232,8 +245,8 @@ particle filter, peak 4.24 GiB), solver success 0.06-0.13 (cbf-fov) and 0.53-0.6
 BezierMPCSim 179-227 ms a step, all scenarios succeed; the command line
 flies all eight variants to success on 3r/rotate, 11-52 ms per replan step
 through the structured ADMM, 119-363 ms through the dense ADMM and the f32
-IPM (over the 100 ms budget); fov +polish at 8192 lanes usable 0.7152 (raw
-0.7097), certified 0.0520, 1.0-2.7 s a call, the polish 81-83 % of it;
+IPM (over the 100 ms budget); fov +polish at 8192 lanes usable 0.7156 (raw
+0.7101), certified 0.0522, 1.0-2.7 s a call, the polish 81-83 % of it;
 connectivity +polish usable 0.9998 (raw 0.9929), certified 0.9993, 0.7-2.2 s
 (polish 98-99 %); ~16 400-20 500 launches a call, device busy 37-66 %,
 MAGMA's LU row swaps the largest kernel; the polish on the card equal to the
@@ -249,7 +262,8 @@ lanes, all max-iter at the oracle.
 5 to 11 minutes in all (353-432 s in the runs with the 32-agent and team
 phases above, 343-573 s with the slice-6 phases, 494-510 s with the last
 modules' phases, 616 s with the cluster kernel's before the CBF-only loops
-were cut to 30 steps, 364 s after; 400-500 s of phases with slice 10's);
+were cut to 30 steps, 364 s after; 400-500 s of phases with slice 10's,
+362 s with slice 12's);
 every phase logs its wall seconds.
 """
 
@@ -327,7 +341,7 @@ TEAM_FOV_RINGS = {40: 19, 64: 8, 96: 1, 128: 4, 256: 1, 400: 1}
 CHUNK = 256                                  # the auto lane_chunk of the 400-agent lane
 #: rows timed alone, at shapes no phase of the main path launches (the log and
 #: PERF.md keep them; the kernels line lists what the main path ran)
-ALONE = ("cluster_fov256",)
+ALONE = ("cluster_fov256", "tiled_fov", "folded_connectivity", "folded_lambda2")
 #: teams past every register layout: the largest fov team and connectivity team
 #: every kernel must hold (coverage)
 LARGEST_TEAM = 512
@@ -344,12 +358,13 @@ SOURCES = {"tiled": "mpc_cbf_torch/csrc/structured_admm_tiled.cu",
            "generic": "mpc_cbf_torch/csrc/structured_admm_generic.cu",
            "cluster": "mpc_cbf_torch/csrc/structured_admm_cluster.cu"}
 #: barriers of one iteration as the sources write them (generic:
-#: structured_admm_generic.cu; folded: structured_admm_folded.cu; cluster:
+#: structured_admm_generic.cu; folded: structured_admm_folded.cu, its three
+#: waits, two of them of some warps only; cluster:
 #: structured_admm_cluster.cu's register layout, two block-wide and two waits
 #: for the other blocks' pushes; its streamed layout has two block-wide and
 #: two cluster-wide): a count read from the code, printed beside the measured
 #: times in the log only
-BARRIERS = {"generic": 3, "folded": 5, "cluster": 4}
+BARRIERS = {"generic": 3, "folded": 3, "cluster": 4}
 # the card's peaks, NVIDIA's H100 SXM data sheet at 700 W: float32 outside the
 # tensor cores, float64 on the tensor cores (the tiled kernel runs their
 # mma.sync.m8n8k4.f64), HBM3
@@ -458,13 +473,15 @@ def build() -> None:
     for line in lines:
         if "registers" in line or "spill" in line or "# " in line[:2]:
             log(f"  {line.strip()}")
-    # the cluster kernel's register layout holds its rows in registers: no instance may spill
-    spilled = [line.split("'")[1] for i, line in enumerate(lines)
-               if "Compiling entry function" in line and "reg_kernel" in line
-               and not any("0 bytes spill stores, 0 bytes spill loads" in ln
-                           for ln in lines[i + 1:i + 4])]
-    if spilled or not any("reg_kernel" in line for line in lines):
-        raise AssertionError(f"ptxas: the register layout spills in {spilled} (or has no report)")
+    # the cluster kernel's register layout and the folded kernel hold their rows in registers:
+    # no instance may spill
+    for kernel in ("reg_kernel", "folded_kernel"):
+        spilled = [line.split("'")[1] for i, line in enumerate(lines)
+                   if "Compiling entry function" in line and kernel in line
+                   and not any("0 bytes spill stores, 0 bytes spill loads" in ln
+                               for ln in lines[i + 1:i + 4])]
+        if spilled or not any(kernel in line for line in lines):
+            raise AssertionError(f"ptxas: {kernel} spills in {spilled} (or has no report)")
 
 
 def phase_inputs(B: int, seed: int, shapes=FOV_SHAPES, operand: str | None = None):
@@ -489,10 +506,10 @@ def _phase_inputs(B: int, seed: int, shapes: tuple, operand: str | None) -> tupl
 
 def by_name(variant: str, shapes: dict):
     """(operand, plain twin) of a kernel launched by name at these shapes: WK
-    and the Woodbury twin for tiled, else C and the C form's loop (the twin of
-    the shape, but at the tiled kernel's shapes)."""
+    and the Woodbury form's loop for tiled, else C and the C form's loop (the
+    twin of the shape where the shape takes that form)."""
     if variant == "tiled":
-        return "wk", fused_admm.structured_admm_iterations_ref
+        return "wk", fused_admm.woodbury_iterations_ref
     return "c", fused_admm.folded_iterations_ref
 
 
@@ -512,12 +529,20 @@ def check_kernel(iters: int = 40) -> dict:
     """Every kernel variant against the twin; returns the max abs error of
     each row of the kernels record."""
     cases = [  # (row of the record, what, shapes, lanes, kernel launched by name or None)
-        ("tiled_fov", "fov", FOV_SHAPES, 1001, None),
-        ("tiled_fov", "fov, fewer lanes than a block", FOV_SHAPES, 3, None),
+        # the fov flagship, the main path: the folded kernel (one lane a block, the lane's C),
+        # also for the step's longest phase; the tiled kernel there by name, on WK
+        ("folded_fov", "fov", FOV_SHAPES, 1001, None),
+        ("folded_fov", "fov, 3 lanes", FOV_SHAPES, 3, None),
+        ("folded_fov", "fov, the step's longest phase", FOV_SHAPES, 1001, None, max(PHASES)),
+        ("tiled_fov", "fov through the tiled kernel", FOV_SHAPES, 1001, "tiled"),
+        ("tiled_fov", "fov through the tiled kernel, fewer lanes than a block", FOV_SHAPES, 3,
+         "tiled"),
         ("tiled_connectivity", "connectivity", CONN_SHAPES, 1001, None),
         ("tiled_connectivity", "connectivity, fewer lanes than a block", CONN_SHAPES, 3, None),
         ("folded_swarm_connectivity", "32-agent connectivity", SWARM_CONN_SHAPES, 1001, None),
         ("folded_swarm_connectivity", "32-agent connectivity, 3 lanes", SWARM_CONN_SHAPES, 3, None),
+        ("folded_swarm_connectivity", "32-agent connectivity, the step's longest phase",
+         SWARM_CONN_SHAPES, 1001, None, max(SWARM_PHASES["connectivity"])),
         ("folded_swarm_fov", "32-agent fov", SWARM_FOV_SHAPES, 64, None),
         ("folded_swarm_fov", "32-agent fov, 3 lanes", SWARM_FOV_SHAPES, 3, None),
         ("generic", "run_sim's 3-robot connectivity", RUN_SIM_CONN_SHAPES, 3, None),
@@ -528,6 +553,11 @@ def check_kernel(iters: int = 40) -> dict:
         ("tiled_lambda2", "connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES, 1001, None),
         ("tiled_lambda2", "connectivity with the λ₂/CLF rows, fewer lanes than a block",
          LAMBDA2_SHAPES, 3, None),
+        # the folded kernel by name at the shapes that take the tiled one (timed beside it)
+        ("folded_connectivity", "connectivity through the folded kernel", CONN_SHAPES, 1001,
+         "folded"),
+        ("folded_lambda2", "connectivity with the λ₂/CLF rows through the folded kernel",
+         LAMBDA2_SHAPES, 1001, "folded"),
         *(("generic_sweep_r%d" % R, f"sweep connectivity team of {R}", sweep_shapes(R),
            SWEEP_SEEDS * R, None) for R in SWEEP_SIZES),
         ("generic_sweep_r10", "sweep connectivity team of 10, a cold phase",
@@ -683,8 +713,10 @@ def time_phases(what: str, shapes, B: int, phases=PHASES, variant: str | None = 
     launched by name) and the twin per rho phase length at B lanes, beside
     the bound; for a C-form kernel also the C build of one phase
     (StructuredQPOperator.folded_c: the float64 product, its Cholesky and two
-    triangular solves, library calls) on the same lanes. Returns the sums
-    over ``phases``: the launches one control step makes on B lanes."""
+    triangular solves, library calls) on the same lanes, for the tiled kernel
+    the Woodbury build (StructuredQPOperator.woodbury: two batched products
+    and an [m_d, m_d] inverse). Returns the sums over ``phases``: the
+    launches one control step makes on B lanes."""
     if variant is None:
         operand, twin = None, fused_admm.structured_admm_iterations_ref
     else:
@@ -707,20 +739,23 @@ def time_phases(what: str, shapes, B: int, phases=PHASES, variant: str | None = 
     mhz = sm_clock_mhz()                      # read right after the window
     its = sum(phases)
     variant = variant or kernel_of_shape(shapes)
-    c_ms = None
+    c_ms = wk_ms = None
+    op = structured_mod.StructuredQPOperator
     if args[10].dtype == torch.float64:       # the C form: one build a phase, as _solve makes it
         M_s = torch.linalg.inv(args[0].double())
-        c_ms = len(phases) * cuda_ms(
-            lambda: structured_mod.StructuredQPOperator.folded_c(M_s, args[6], args[9]), reps=2)
+        c_ms = len(phases) * cuda_ms(lambda: op.folded_c(M_s, args[6], args[9]), reps=2)
+    else:                                     # the Woodbury form
+        wk_ms = len(phases) * cuda_ms(lambda: op.woodbury(args[0], args[6], args[9]), reps=2)
     out = dict(ms=k_sum, plain_ms=t_sum, bound_ms=b_ms, bound_by=by, lanes=B, phases=list(phases),
                us_per_iter=k_sum * 1e3 / its, clocks_per_iter=k_sum * 1e3 / its * mhz,
-               c_build_ms=c_ms)
+               c_build_ms=c_ms, wk_build_ms=wk_ms)
     msg = (f"{what}, {len(phases)} phases {phases} at B={B}: kernel {k_sum:.3f} ms, "
            f"{bound_text(b_ms, k_sum)}, by {by} (peaks {PEAK_F32 / 1e12:.0f} / "
            f"{PEAK_F64 / 1e12:.0f} TFLOP/s float32 / float64, {PEAK_BYTES / 1e12:.2f} TB/s); "
            f"twin {t_sum:.3f} ms; an iteration {per_iter_text(k_sum, its, mhz, variant)}"
            + (f"; the C builds of the {len(phases)} phases (folded_c) {c_ms:.3f} ms"
-              if c_ms is not None else ""))
+              if c_ms is not None else
+              f"; the Woodbury builds of the {len(phases)} phases (woodbury) {wk_ms:.3f} ms"))
     log(msg)
     return out
 
@@ -820,9 +855,40 @@ def check_result(res, batch: int) -> float:
     return float(res.success.float().mean())
 
 
+def woodbury_step(simpc, inputs):
+    """One call of ``simpc`` with the Woodbury WK and the tiled kernel launched
+    by name (not counted) in place of the route of its shapes: the fov
+    flagship's form and kernel before it took the folded kernel's C. Returns
+    (result, wall seconds)."""
+    ops = [op for op in (simpc.op_qp, simpc.op_qp_tail) if op is not None]
+    lib = fused_admm._lib()
+
+    def tiled(*args, iters, sigma, alpha):
+        return fused_admm.launch_variant(lib, "tiled", args, iters=iters, sigma=sigma,
+                                         alpha=alpha)
+    routed = structured_mod.structured_admm_iterations
+    try:
+        structured_mod.structured_admm_iterations = tiled
+        for op in ops:
+            op.wk_form = True
+        simpc.optimize_batch(*inputs)         # warm-up
+        t0 = sync_clock()
+        res = simpc.optimize_batch(*inputs)
+        return res, sync_clock() - t0
+    finally:
+        structured_mod.structured_admm_iterations = routed
+        for op in ops:
+            op.wk_form = fused_admm.takes_wk(op.n, op.m_s, op.m_d)
+
+
 def fov_main_path(batch: int = 8192):
+    """The fov flagship through its route (the folded kernel on the lane's C,
+    4 launches a call, asserted), beside the same step through the tiled
+    kernel on WK (its usable rate bars the route's: not below it) and
+    through the plain loop (within 0.01)."""
     ctrl, inputs = bench_problem("fov", batch)
     simpc = admm_stepper(ctrl)
+    variant = kernel_of_shape(FOV_SHAPES)
     step = lambda: simpc.optimize_batch(*inputs)
     step()                                   # warm-up (torch.func, cuBLAS, cuSOLVER)
     torch.cuda.synchronize()
@@ -832,9 +898,9 @@ def fov_main_path(batch: int = 8192):
     res = step()
     torch.cuda.synchronize()
     launches = KERNEL.launches
-    if launches != 4 or KERNEL.launches_by_variant["tiled"] != 4:
+    if launches != 4 or KERNEL.launches_by_variant[variant] != 4:
         raise AssertionError(f"main path launched the kernel {launches} times "
-                             f"({KERNEL.launches_by_variant}), expected the tiled one 4 times")
+                             f"({KERNEL.launches_by_variant}), expected the {variant} one 4 times")
     usable = check_result(res, batch)
     log(f"fov main path, {batch} lanes: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -854,6 +920,14 @@ def fov_main_path(batch: int = 8192):
     stage_split(simpc, inputs)
     profile_call(step)
     before = KERNEL.launches
+    res_w, t_w = woodbury_step(simpc, inputs)
+    usable_w = check_result(res_w, batch)
+    log(f"fov main path, {batch} lanes, the Woodbury WK and the tiled kernel by name: usable "
+        f"{usable_w:.4f}, {t_w * 1e3:.2f} ms; success flags differ from the route's on "
+        f"{int((res_k.success != res_w.success).sum())} lanes")
+    if usable < usable_w:
+        raise AssertionError(f"usable rates: the route ({variant}) {usable:.4f}, the tiled "
+                             f"kernel on WK {usable_w:.4f} (bar: not below it)")
 
     plain = control_step(ctrl, inputs, use_kernel=False)
     plain()
@@ -1228,7 +1302,7 @@ def iteration0(ctrl, inputs):
 def polish_path(mode: str, batch: int = 8192) -> dict:
     """bench.py's +polish mode (bench.py:139-141,185-189): StructuredIMPC
     with StructuredConfig(iters=200, iters_tail=64, polish=True), the f32
-    ADMM (tiled kernel, 4 launches a call) and the f64 active-set polish on
+    ADMM (4 launches a call of the shape's kernel) and the f64 active-set polish on
     the card. Bars: finite flyable lanes, certified lanes a subset of usable
     ones, usable at or above the raw ADMM's in the same run; connectivity
     certified >= 0.99 (fov's rate is reported: the polish needs a
@@ -1242,9 +1316,10 @@ def polish_path(mode: str, batch: int = 8192) -> dict:
     reset_counts()
     res = step()
     torch.cuda.synchronize()
-    if KERNEL.launches != 4 or KERNEL.launches_by_variant["tiled"] != 4:
+    variant = kernel_of_shape(FOV_SHAPES if mode == "fov" else CONN_SHAPES)
+    if KERNEL.launches != 4 or KERNEL.launches_by_variant[variant] != 4:
         raise AssertionError(f"{mode} +polish launched {KERNEL.launches_by_variant}, "
-                             "expected the tiled kernel 4 times a call")
+                             f"expected the {variant} kernel 4 times a call")
     peak = torch.cuda.max_memory_allocated() / 2**30
     usable = check_result(res, batch)
     cert = float(res.certified.float().mean())
@@ -1255,7 +1330,7 @@ def polish_path(mode: str, batch: int = 8192) -> dict:
     _, times = timed_calls(step, 3)
     log(f"{mode} +polish, {batch} lanes: usable {usable:.4f} (raw ADMM {usable_raw:.4f}), "
         f"certified {cert:.4f}, {spread(times)}, {batch * 2 / statistics.median(times):.1f} "
-        f"solves/s, peak device memory {peak:.3f} GiB, tiled kernel x4 a call")
+        f"solves/s, peak device memory {peak:.3f} GiB, {variant} kernel x4 a call")
     if usable < usable_raw:
         raise AssertionError(f"{mode} +polish usable {usable:.4f} below the raw ADMM's "
                              f"{usable_raw:.4f}")
@@ -2034,8 +2109,14 @@ def main() -> int:
 
     def time_kernels() -> dict:
         return {
-            "tiled_fov": time_phases("fov", FOV_SHAPES, 8192),
+            # the fov flagship's route (folded, the lane's C) and the tiled kernel there by
+            # name (WK); the folded kernel by name beside the tiled one at the connectivity shapes
+            "folded_fov": time_phases("fov", FOV_SHAPES, 8192),
+            "tiled_fov": time_phases("fov through the tiled kernel", FOV_SHAPES, 8192,
+                                     variant="tiled"),
             "tiled_connectivity": time_phases("connectivity", CONN_SHAPES, 32768),
+            "folded_connectivity": time_phases("connectivity through the folded kernel",
+                                               CONN_SHAPES, 32768, variant="folded"),
             # at the lanes and phase lengths the 32-agent steps below give a launch:
             # all 4096 lanes (the fov step's auto lane_chunk holds them all)
             "folded_swarm_connectivity": time_phases(
@@ -2047,6 +2128,8 @@ def main() -> int:
             # the 4-robot connectivity step with the λ₂/CLF rows
             "tiled_lambda2": time_phases("connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES,
                                          32768),
+            "folded_lambda2": time_phases("connectivity with the λ₂/CLF rows through the folded "
+                                          "kernel", LAMBDA2_SHAPES, 32768, variant="folded"),
             # the generic kernel, at the lanes a launch gets from run_sim's 3-robot team
             # (the command-line phase) and from the 24-agent step below
             "generic": time_phases("run_sim's 3-robot connectivity", RUN_SIM_CONN_SHAPES, 3,
@@ -2082,9 +2165,19 @@ def main() -> int:
                 phases=RUN_SIM_PHASES) for R in SWEEP_SIZES},
         }
     rows = phase("kernels timed alone", time_kernels)
+    # the fov flagship's route: its kernel and C builds take less device time than the tiled
+    # kernel and the Woodbury builds of the same four phases
+    route, wk = rows["folded_fov"], rows["tiled_fov"]
+    log(f"fov flagship, 8192 lanes, four phases: folded {route['ms']:.3f} + C builds "
+        f"{route['c_build_ms']:.3f} = {route['ms'] + route['c_build_ms']:.3f} ms; tiled "
+        f"{wk['ms']:.3f} + Woodbury builds {wk['wk_build_ms']:.3f} = "
+        f"{wk['ms'] + wk['wk_build_ms']:.3f} ms")
+    if route["ms"] + route["c_build_ms"] >= wk["ms"] + wk["wk_build_ms"]:
+        raise AssertionError("the fov flagship's route (folded, C) is not faster than the tiled "
+                             "kernel on WK")
     _phase_inputs.cache_clear()
     torch.cuda.empty_cache()
-    rows["tiled_fov"]["launches"] = phase("fov ADMM step", fov_main_path)
+    rows["folded_fov"]["launches"] = phase("fov ADMM step", fov_main_path)
     rows["tiled_connectivity"]["launches"] = phase("connectivity ADMM step", connectivity_path)
     rows["folded_swarm_connectivity"]["launches"] = phase(
         "32-agent connectivity step", swarm_path, "connectivity", *swarm["connectivity"],
@@ -2150,7 +2243,7 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None, "lanes": r["lanes"], "phases": r["phases"],
         "us_per_iter": r["us_per_iter"], "clocks_per_iter": r["clocks_per_iter"],
-        "c_build_ms": r["c_build_ms"]}
+        "c_build_ms": r["c_build_ms"], "wk_build_ms": r["wk_build_ms"]}
         for row, r in rows.items() if row not in ALONE]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

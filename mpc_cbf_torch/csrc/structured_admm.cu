@@ -27,11 +27,12 @@
 // then used in each of the 32 to 550 iterations; the count is worked out in
 // structured_admm_tiled.cu), and the bytes of the rows where they do not.
 // Four kernels, chosen from the shape alone by structured_admm_variant():
-//   tiled     structured_admm_tiled.cu: compiled per shape (fov, connectivity,
-//             λ₂/CLF connectivity), several lanes a block, A_d in registers.
-//             The main paths run it. Takes WK.
-//   folded    structured_admm_folded.cu: compiled per shape (32-agent fov and
-//             connectivity), one lane a block, [A_s; A_d] in registers.
+//   tiled     structured_admm_tiled.cu: compiled per shape (connectivity,
+//             λ₂/CLF connectivity; the fov flagship by name only), several
+//             lanes a block, A_d in registers. Takes WK.
+//   folded    structured_admm_folded.cu: compiled per shape (the fov flagship,
+//             32-agent fov and connectivity), one lane a block, [A_s; A_d]
+//             and the rows' state in registers.
 //   generic   structured_admm_generic.cu: shapes known only at run time, one
 //             lane a block with [A_s; A_d] in registers (the sweep's and
 //             run_sim's connectivity teams, the 24-agent fov team).
@@ -44,10 +45,11 @@
 
 #include "structured_admm.cuh"
 
-// The kernel a shape takes: tiled or folded where there is an instantiation,
-// else generic where one of its layouts holds the shape, else cluster; kNone
-// where none does. The tiled shapes are the ones that take WK
-// (fused_admm.TILED_SHAPES).
+// The kernel a shape takes: tiled or folded where one takes it, else generic
+// where one of its layouts holds the shape, else cluster; kNone where none
+// does. The tiled shapes are the ones that take WK (fused_admm.TILED_SHAPES);
+// tiled's fov instance runs by name only, and folded's instances at the
+// tiled shapes run by name only (tiled comes first).
 extern "C" int structured_admm_variant(int n, int m_s, int m_d) {
   if (structured_admm_tiled_has(n, m_s, m_d)) return kTiled;
   if (structured_admm_folded_has(n, m_s, m_d)) return kFolded;

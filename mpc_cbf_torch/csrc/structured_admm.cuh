@@ -50,11 +50,47 @@ __device__ __forceinline__ float row_update(float zA, float rho, float lo, float
   return rho * zn - yn;
 }
 
-// structured_admm_tiled.cu: whether a shape has an instantiation, and its
-// launch (returns a cudaError_t; cudaErrorInvalidValue without one).
+// Stage clocks of an iteration, for scripts/admm_kernel_sweep.py --stage-clocks only: it
+// compiles a copy with ADMM_STAGE_CLOCKS defined, and the package's build leaves the markers
+// empty. Each thread adds the clocks since the last marker to its count of stage s, in
+// registers; after the loop thread 0 of block 0 adds its counts to its source's own
+// admm_stage_clocks, which read_stage_clocks copies out (a source with markers exports it).
+constexpr int kStageSlots = 10;
+#ifdef ADMM_STAGE_CLOCKS
+static __device__ unsigned long long admm_stage_clocks[kStageSlots];
+#define STAGE_START                        \
+  long long stage_sum[kStageSlots] = {};   \
+  long long stage_t = clock64()
+#define STAGE(s)                                  \
+  {                                               \
+    const long long stage_now = clock64();        \
+    stage_sum[s] += stage_now - stage_t;          \
+    stage_t = stage_now;                          \
+  }
+#define STAGE_END                                                              \
+  if (blockIdx.x == 0 && threadIdx.x == 0)                                     \
+    for (int s = 0; s < kStageSlots; ++s)                                      \
+      admm_stage_clocks[s] += static_cast<unsigned long long>(stage_sum[s])
+// The source's stage clocks into host[0 .. kStageSlots), then zeroes them.
+static inline int read_stage_clocks(unsigned long long* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, admm_stage_clocks, sizeof(admm_stage_clocks));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[kStageSlots] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(admm_stage_clocks, zero, sizeof(zero)));
+}
+#else
+#define STAGE_START
+#define STAGE(s)
+#define STAGE_END
+#endif
+
+// structured_admm_tiled.cu: whether a shape takes it (the shapes that take
+// WK), and the launch of any of its instantiations (returns a cudaError_t;
+// cudaErrorInvalidValue without one).
 bool structured_admm_tiled_has(int n, int m_s, int m_d);
 int structured_admm_tiled_launch(const AdmmArgs& a, cudaStream_t stream);
-// structured_admm_folded.cu: the same pair for its instantiations.
+// structured_admm_folded.cu: whether a shape has an instantiation, and its
+// launch.
 bool structured_admm_folded_has(int n, int m_s, int m_d);
 int structured_admm_folded_launch(const AdmmArgs& a, cudaStream_t stream);
 // structured_admm_generic.cu: whether one of its layouts holds the shape

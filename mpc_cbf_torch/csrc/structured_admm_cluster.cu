@@ -134,31 +134,6 @@ constexpr int kP = 8;                          // threads a row of C in xt = C R
 // a row and the 16 / kP rows of a half-warp then load from 32 distinct banks.
 __host__ __device__ constexpr int pad_c(int x) { return round_up(x + kP, 2 * kP) - kP; }
 
-// Stage clocks of an iteration, for scripts/admm_kernel_sweep.py --stage-clocks only: it
-// compiles a copy with ADMM_STAGE_CLOCKS defined, and the package's build leaves the markers
-// empty. Each thread adds the clocks since the last marker to its count of stage s, in
-// registers; after the loop thread 0 of block 0 adds its counts to admm_stage_clocks.
-#ifdef ADMM_STAGE_CLOCKS
-__device__ unsigned long long admm_stage_clocks[8];
-#define STAGE_START                  \
-  long long stage_sum[8] = {};       \
-  long long stage_t = clock64()
-#define STAGE(s)                                  \
-  {                                               \
-    const long long stage_now = clock64();        \
-    stage_sum[s] += stage_now - stage_t;          \
-    stage_t = stage_now;                          \
-  }
-#define STAGE_END                                                              \
-  if (blockIdx.x == 0 && threadIdx.x == 0)                                     \
-    for (int s = 0; s < 8; ++s)                                                \
-      admm_stage_clocks[s] += static_cast<unsigned long long>(stage_sum[s])
-#else
-#define STAGE_START
-#define STAGE(s)
-#define STAGE_END
-#endif
-
 // Shared memory of one block of the register layout, byte offsets: the two
 // exchanges' mbarriers, C's rows, the loop's vectors, the pushed partial column
 // sums, the warps' partials, each strip's r and the row state.
@@ -949,11 +924,9 @@ int structured_admm_cluster_launch(const AdmmArgs& a, cudaStream_t stream) {
 }
 
 #ifdef ADMM_STAGE_CLOCKS
-// The stage clocks into host[0 .. 8), then zeroes them (scripts/admm_kernel_sweep.py).
+// The stage clocks into host[0 .. kStageSlots), then zeroes them
+// (scripts/admm_kernel_sweep.py).
 extern "C" int structured_admm_stage_clocks(unsigned long long* host) {
-  cudaError_t err = cudaMemcpyFromSymbol(host, admm_stage_clocks, sizeof(admm_stage_clocks));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned long long zero[8] = {};
-  return static_cast<int>(cudaMemcpyToSymbol(admm_stage_clocks, zero, sizeof(zero)));
+  return read_stage_clocks(host);
 }
 #endif

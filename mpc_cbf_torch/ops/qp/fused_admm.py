@@ -5,10 +5,11 @@ plain PyTorch twin (counterpart of ``mpc_cbf_tpu/ops/qp/pallas_admm.py``).
 of ``StructuredQPOperator._solve`` for a whole batch of lanes. On CUDA
 float32 tensors it launches one of the kernels of ``csrc/`` (built at first
 use by ``mpc_cbf_torch._build``), chosen from the shape alone (``VARIANTS``):
-``tiled`` for the three shapes compiled in ``csrc/structured_admm_tiled.cu``
-(``TILED_SHAPES``: the fov and connectivity control steps), ``folded`` for
-those of ``csrc/structured_admm_folded.cu`` (the 32-agent fov and
-connectivity teams: one lane a block), ``generic`` for the other shapes
+``tiled`` for the shapes of ``TILED_SHAPES`` in
+``csrc/structured_admm_tiled.cu`` (the connectivity control steps),
+``folded`` for those of ``csrc/structured_admm_folded.cu`` (the fov
+flagship and the 32-agent fov and connectivity teams: one lane a block),
+``generic`` for the other shapes
 whose lane fits one block (``csrc/structured_admm_generic.cu``: shapes known
 only at run time, such as the sweep's and run_sim's connectivity teams and
 the small fov teams), and ``cluster`` for the larger lanes
@@ -53,10 +54,11 @@ Tensor = torch.Tensor
 #: kernel variants, indexed by the code ``structured_admm_variant`` returns
 #: (``AdmmVariant`` in csrc/structured_admm.cuh; -1: no kernel holds the shape)
 VARIANTS = ("tiled", "folded", "generic", "cluster")
-#: (n, m_s, m_d) of the instantiations of csrc/structured_admm_tiled.cu: the
-#: fov flagship, connectivity, and connectivity with the λ₂/CLF rows. Their
-#: loop takes WK; every other shape takes C.
-TILED_SHAPES = ((43, 127, 84), (36, 126, 6), (36, 126, 14))
+#: (n, m_s, m_d) of the shapes that take the tiled kernel of
+#: csrc/structured_admm_tiled.cu: connectivity, and connectivity with the
+#: λ₂/CLF rows. Their loop takes WK; every other shape takes C (the fov
+#: flagship too, whose tiled instance runs by name only).
+TILED_SHAPES = ((36, 126, 6), (36, 126, 14))
 State5 = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]
 
 
@@ -104,13 +106,33 @@ def folded_iterations_ref(
                  iters, sigma, alpha)
 
 
+def woodbury_iterations_ref(
+    Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, WK,
+    x0, zs0, zd0, ys0, yd0, *, iters: int, sigma: float, alpha: float,
+) -> State5:
+    """The twin's loop in the Woodbury form at any shape: xt = S - WK (Ad S),
+    S = Ms_inv RHS, the products and the difference in float64. The twin of
+    ``TILED_SHAPES``; tests and measurements also hold the tiled kernel
+    launched by name at another shape against it."""
+    dt, hi = qb.dtype, torch.float64
+    Ms_inv_hi, WK_hi = Ms_inv.to(hi), WK.to(hi)
+
+    def woodbury(RHS):           # shared Ms_inv, minus the folded per-lane correction
+        S = (RHS.to(hi) @ Ms_inv_hi.T).to(dt)                    # [B, n]
+        t = torch.einsum("bdj,bj->bd", Ad, S)                    # [B, m_d]
+        return (S.to(hi) - torch.einsum("bie,be->bi", WK_hi, t.to(hi))).to(dt)
+    return _loop(woodbury, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, x0, zs0, zd0, ys0,
+                 yd0, iters, sigma, alpha)
+
+
 def structured_admm_iterations_ref(
     Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, W,
     x0, zs0, zd0, ys0, yd0, *, iters: int, sigma: float, alpha: float,
 ) -> State5:
     """Plain PyTorch twin of the kernel: same update order, same
     over-relaxation, batched einsums per iteration. ``W`` is the shape's
-    operand: WK at ``TILED_SHAPES``, C elsewhere (``folded_iterations_ref``).
+    operand: WK at ``TILED_SHAPES`` (``woodbury_iterations_ref``), C
+    elsewhere (``folded_iterations_ref``).
 
     One deliberate difference from the JAX scan body: the x-update
     accumulates in float64 (a no-op for float64 inputs). In the Woodbury
@@ -120,18 +142,10 @@ def structured_admm_iterations_ref(
     float64, and 0.710 with the whole loop in float64. The C form is one
     float64 product C RHS, which skips the float32 rounding of S and Ad S
     altogether. The kernels accumulate the same way."""
-    args = (A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, x0, zs0, zd0, ys0, yd0)
-    if not takes_wk(qb.shape[1], A_sb.shape[0], Ad.shape[1]):
-        return folded_iterations_ref(Ms_inv, *args[:9], W, *args[9:], iters=iters,
-                                     sigma=sigma, alpha=alpha)
-    dt, hi = qb.dtype, torch.float64
-    Ms_inv_hi, WK_hi = Ms_inv.to(hi), W.to(hi)
-
-    def woodbury(RHS):           # shared Ms_inv, minus the folded per-lane correction
-        S = (RHS.to(hi) @ Ms_inv_hi.T).to(dt)                    # [B, n]
-        t = torch.einsum("bdj,bj->bd", Ad, S)                    # [B, m_d]
-        return (S.to(hi) - torch.einsum("bie,be->bi", WK_hi, t.to(hi))).to(dt)
-    return _loop(woodbury, *args, iters, sigma, alpha)
+    wk = takes_wk(qb.shape[1], A_sb.shape[0], Ad.shape[1])
+    loop = woodbury_iterations_ref if wk else folded_iterations_ref
+    return loop(Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, W, x0, zs0, zd0, ys0, yd0,
+                iters=iters, sigma=sigma, alpha=alpha)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

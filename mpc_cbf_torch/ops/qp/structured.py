@@ -15,13 +15,13 @@ numpy. Each rho phase makes one per-lane operand of the x-update, and the
 fixed-count iteration loop runs in the hand-written CUDA kernel of
 ``fused_admm.py`` (or its plain twin on the CPU). The operand's form is
 decided by the shape alone (``fused_admm.takes_wk``):
-- the tiled kernel's three shapes (the fov flagship, connectivity and
-  λ₂/CLF connectivity) keep the JAX package's Woodbury form: the folded
-  correction WK = Ms_inv A_d' (R^-1 + A_d Ms_inv A_d')^-1 [B, n, m_d]
-  (``woodbury``);
-- every other shape takes C = M_b^-1 [B, n, n] in float64 (``folded_c``):
-  a Cholesky of the lane's [n, n] SPD matrix where the Woodbury form
-  inverts an [m_d, m_d] one (163 against 1524 rows at a 128-agent fov team).
+- the tiled kernel's two shapes (connectivity and λ₂/CLF connectivity)
+  keep the JAX package's Woodbury form: the folded correction
+  WK = Ms_inv A_d' (R^-1 + A_d Ms_inv A_d')^-1 [B, n, m_d] (``woodbury``);
+- every other shape, the fov flagship's too, takes C = M_b^-1 [B, n, n] in
+  float64 (``folded_c``): a Cholesky of the lane's [n, n] SPD matrix where
+  the Woodbury form inverts an [m_d, m_d] one (43 against 84 rows at the
+  fov flagship, 163 against 1524 at a 128-agent fov team).
   A deliberate difference from the JAX package, which keeps the float32
   Woodbury form at every shape: the float32 cancellation between Ms_inv RHS
   and WK t (``fused_admm.structured_admm_iterations_ref``) is why C is

@@ -3,7 +3,7 @@
     python3 scripts/admm_kernel_sweep.py [--fov LAYOUT ...] [--conn LAYOUT ...]
                                          [--lambda2 LAYOUT ...]
                                          [--swarm-conn LAYOUT ...] [--swarm-fov LAYOUT ...]
-                                         [--folded-at fov|lambda2 LAYOUT ...]
+                                         [--folded-at fov|conn|lambda2 LAYOUT ...]
                                          [--generic LAYOUT ...] [--generic-team24 LAYOUT ...]
                                          [--cluster [LAYOUT ...]] [--stream [NW ...]]
                                          [--stage-clocks [SHAPE ...]] [--timing-check]
@@ -13,12 +13,13 @@ The package's kernel sources carry one layout per shape: the ``Shape<...>``
 lines at the end of mpc_cbf_torch/csrc/structured_admm_tiled.cu (fov,
 connectivity, connectivity with the λ₂/CLF rows) and the ``FoldedShape<...>``
 lines at the end of csrc/structured_admm_folded.cu (32-agent fov, 32-agent
-connectivity). A LAYOUT of the tiled kernel is G,L,TPL (groups a block,
-lanes a group, threads a lane) or G,L,TPL,RG,CG (also the grid of register
-tiles A_d is cut into); one of the folded kernel is T,RG,CG (threads a
-block, the grid of register tiles [A_s; A_d] is cut into). Every kernel
-gets the operand it takes (random_phase_inputs: WK for tiled, the float64
-C for the others) of the same draw. Only the shapes named
+connectivity, the fov flagship). A LAYOUT of the tiled kernel is G,L,TPL
+(groups a block, lanes a group, threads a lane) or G,L,TPL,RG,CG (also the
+grid of register tiles A_d is cut into); one of the folded kernel is
+T,RG,CG,P (threads a block, the grid of register tiles [A_s; A_d] is cut
+into, threads a row of C). Every kernel gets the operand it takes
+(random_phase_inputs: WK for tiled, the float64 C for the others) of the
+same draw, and is held to the twin of that form. Only the shapes named
 by an option are built and timed; with no option, the fov, connectivity and
 λ₂ shapes with their defaults. The i-th layout of every shape is built
 together (a shorter list repeats its last): this script writes a copy of
@@ -29,11 +30,12 @@ iterations) and times one rho phase of each length of a control step at the
 lanes a launch gets there (CUDA events, mean of 3 launches after a warm-up):
 150 + 50 + 32 + 32 iterations at 8192 fov lanes and 32768 connectivity
 lanes, 4 x 50 at the 4096 lanes of the 32-agent connectivity step, 550 + 50
-+ 150 + 50 at one 2048-lane chunk of the 32-agent fov step. --folded-at tries the folded kernel at a shape the package gives to
-the tiled kernel (fov or lambda2): the copy's ``SwarmConn`` line of the
-folded source becomes that shape with the layouts T,RG,CG, launched by
-name beside the tiled kernel of the same copy (so not together with
---swarm-conn, which rewrites the same line). --generic times the generic
++ 150 + 50 at the 4096 lanes of the 32-agent fov step (one lane chunk).
+--folded-at times the folded kernel at the fov flagship's, the
+connectivity or the λ₂/CLF connectivity shape (fov, conn or lambda2: the
+copy's ``Flagship``, ``Conn`` or ``ConnLambda2`` line of the folded source)
+with the layouts T,RG,CG,P, launched by name beside the tiled kernel of the
+same copy (at 8192 and 32768 lanes, 150 + 50 + 32 + 32 iterations). --generic times the generic
 kernel (csrc/structured_admm_generic.cu) at the sweep's team of 10 (45, 135,
 18) on 150 lanes and run_sim's 3-robot team (38, 128, 4) on 3 lanes (150 +
 50 + 150 + 50 iterations), with the copy's ``RegN64`` line (the one both
@@ -58,12 +60,16 @@ shapes repeat 8 distinct lanes.
 400 agents on 256 lanes (550 + 50 + 150 + 50); a count that does not fit a
 block is reported as refused.
 --stage-clocks builds a copy of csrc/ with ADMM_STAGE_CLOCKS defined (the
-cluster kernel's STAGE markers then count clocks; the package's build leaves
-them empty) and prints, for one launch of 150 iterations at each SHAPE (none
-named: cluster_fov128 and cluster_fov64, on the lanes of one launch of their
-steps), the clocks thread 0 of block 0 spent an iteration in each stage of
-the loop: the column sums, the block meeting, barrier 1, RHS, xt = C RHS,
-barrier 2, the row sums and updates.
+STAGE markers of the cluster and folded kernels then count clocks; the
+package's build leaves them empty) and prints, for one launch of 150
+iterations at each SHAPE (none named: cluster_fov128 and cluster_fov64; the
+folded kernel's: swarm_fov, swarm_conn, fov_folded; on the lanes of one
+launch of their steps), the clocks thread 0 of block 0 spent an iteration in
+each stage of the loop: for cluster the column sums, the block meeting,
+barrier 1, RHS, xt = C RHS, barrier 2, the row sums and updates; for folded
+the column sums (with the r of the rows), barrier 1, RHS, barrier 2, xt = C
+RHS, barrier 3, the row sums, barrier 4, the row updates, barrier 5 (a
+stage the loop does not have counts 0).
 A LAYOUT of the generic kernel is TC,MAXW[,P[,MINB]]: GenericShape<TC, MAXW,
 P, MINB> (column slots a lane, warps a block at most, threads a row of C
 (default 4), blocks an SM for the launch bounds (default 1)). --timing-check builds
@@ -104,11 +110,13 @@ SHAPES = {"fov": Target(8192, (43, 127, 84), PHASES, "Fov", TILED, "tiled", None
           "lambda2": Target(32768, (36, 126, 14), PHASES, "ConnLambda2", TILED, "tiled", None),
           "swarm_conn": Target(4096, (36, 126, 62), (50, 50, 50, 50), "SwarmConn", FOLDED, "folded",
                                None),
-          "swarm_fov": Target(2048, (67, 151, 372), SWARM_FOV_PHASES, "SwarmFov", FOLDED,
+          "swarm_fov": Target(4096, (67, 151, 372), SWARM_FOV_PHASES, "SwarmFov", FOLDED,
                               "folded", None),
-          # --folded-at: the folded kernel at shapes the package gives to the tiled kernel
-          "fov_folded": Target(8192, (43, 127, 84), PHASES, "SwarmConn", FOLDED, "folded", "tiled"),
-          "lambda2_folded": Target(32768, (36, 126, 14), PHASES, "SwarmConn", FOLDED, "folded",
+          # --folded-at: the folded kernel at the fov flagship's and the connectivity shapes (their
+          # lines of the folded source), beside the tiled kernel
+          "fov_folded": Target(8192, (43, 127, 84), PHASES, "Flagship", FOLDED, "folded", "tiled"),
+          "conn_folded": Target(32768, (36, 126, 6), PHASES, "Conn", FOLDED, "folded", "tiled"),
+          "lambda2_folded": Target(32768, (36, 126, 14), PHASES, "ConnLambda2", FOLDED, "folded",
                                    "tiled"),
           # --generic: both shapes take the RegN64 line of the generic source
           "generic_sweep_r10": Target(150, (45, 135, 18), RUN_SIM_PHASES, "RegN64", GENERIC,
@@ -137,8 +145,15 @@ CLUSTER_LAYOUTS = ["2,chip", "4,chip", "8,chip", "2,chip,8", "4,chip,8", "8,chip
 STREAM_TARGETS = tuple(name for name in SHAPES if name.startswith("stream"))
 STREAM_LAYOUTS = ["8", "4"]
 STAGE_TARGETS = ["cluster_fov128", "cluster_fov64"]
-STAGES = ("column sums", "block meeting", "barrier 1", "RHS", "xt = C RHS", "barrier 2",
-          "row sums and updates")
+FOLDED_STAGE_TARGETS = ["swarm_fov", "swarm_conn", "fov_folded"]
+#: the stages of an iteration, by kernel; the reader of its clocks
+STAGES = {"cluster": ("column sums", "block meeting", "barrier 1", "RHS", "xt = C RHS",
+                      "barrier 2", "row sums and updates"),
+          "folded": ("column sums", "barrier 1", "RHS", "barrier 2", "xt = C RHS", "barrier 3",
+                     "row sums", "barrier 4", "row updates", "barrier 5")}
+STAGE_READERS = {"cluster": "structured_admm_stage_clocks",
+                 "folded": "structured_admm_folded_stage_clocks"}
+STAGE_SLOTS = 10                                      # kStageSlots of csrc/structured_admm.cuh
 KW = dict(sigma=1e-6, alpha=1.6)
 
 
@@ -248,23 +263,25 @@ def step_ms(lib, variant, args, phases, reps=3):
 
 
 def stage_clocks(names, iters=150):
-    """Clocks an iteration of each stage of the cluster kernel's loop (thread 0 of block 0, one
-    launch of ``iters`` iterations after a warm-up) at the shapes ``names``."""
+    """Clocks an iteration of each stage of the loop of the cluster or the folded kernel (thread 0
+    of block 0, one launch of ``iters`` iterations after a warm-up) at the shapes ``names``."""
     lib, report = build({}, defines=("ADMM_STAGE_CLOCKS",))
-    lib.structured_admm_stage_clocks.argtypes = [ctypes.c_void_p]
-    got = np.zeros(8, np.uint64)
+    got = np.zeros(STAGE_SLOTS, np.uint64)
     for name in names:
-        B, shape = SHAPES[name].lanes, SHAPES[name].shape
+        B, shape, variant = SHAPES[name].lanes, SHAPES[name].shape, SHAPES[name].variant
+        read = getattr(lib, STAGE_READERS[variant])
+        read.argtypes = [ctypes.c_void_p]
+        distinct = 8 if variant == "cluster" else 64 if shape[2] > 300 else None
         args = [torch.from_numpy(a).cuda() for a in fused_admm.random_phase_inputs(
-            np.random.default_rng(1), B, *shape, distinct=8, operand="c")]
+            np.random.default_rng(1), B, *shape, distinct=distinct, operand="c")]
         for _ in range(2):                            # a warm-up launch, then the one read
-            fused_admm.launch_variant(lib, "cluster", args, iters=iters, **KW)
+            fused_admm.launch_variant(lib, variant, args, iters=iters, **KW)
             torch.cuda.synchronize()
-            if lib.structured_admm_stage_clocks(got.ctypes.data):
+            if read(got.ctypes.data):
                 raise RuntimeError("reading the stage clocks failed")
-        per = got[:len(STAGES)].astype(np.float64) / iters
-        print(f"stage clocks, {name} {shape} at B={B}, {iters} iterations: "
-              + ", ".join(f"{stage} {c:.0f}" for stage, c in zip(STAGES, per))
+        per = got[:len(STAGES[variant])].astype(np.float64) / iters
+        print(f"stage clocks, {name} {shape} at B={B}, {iters} iterations ({variant}): "
+              + ", ".join(f"{stage} {c:.0f}" for stage, c in zip(STAGES[variant], per))
               + f"; an iteration {per.sum():.0f} clocks", flush=True)
 
 
@@ -294,12 +311,14 @@ def main():
     ap.add_argument("--conn", nargs="*", help="default: 2,4,64 1,8,64 2,4,96")
     ap.add_argument("--lambda2", nargs="*", help="default: 2,4,64,2,12 2,4,64,2,9 2,4,64,7,9")
     ap.add_argument("--swarm-conn", nargs="*",
-                    help="T,RG,CG, e.g. 192,24,8 256,32,8 (timed at 4096 lanes, 4 x 50 iterations)")
+                    help="T,RG,CG,P, e.g. 192,48,4,4 192,24,8,4 (timed at 4096 lanes, 4 x 50 "
+                         "iterations)")
     ap.add_argument("--swarm-fov", nargs="*",
-                    help="T,RG,CG, e.g. 640,80,8 512,64,8 (2048 lanes, 550 + 50 + 150 + 50)")
+                    help="T,RG,CG,P, e.g. 544,136,4,8 640,80,8,8 (4096 lanes, 550 + 50 + 150 + "
+                         "50)")
     ap.add_argument("--folded-at", nargs="+", metavar=("SHAPE", "LAYOUT"),
-                    help="fov or lambda2, then T,RG,CG,KC layouts of the folded kernel at that "
-                         "shape, e.g. fov 256,32,8,32")
+                    help="fov, conn or lambda2, then T,RG,CG,P layouts of the folded kernel at "
+                         "that shape, e.g. fov 224,56,4,4 256,32,8,4")
     ap.add_argument("--generic", nargs="*",
                     help="TC,MAXW[,P[,MINB]] layouts of the generic kernel, e.g. 2,8,4,2 "
                          "2,8,8,2 (timed at the sweep's team of 10 and run_sim's team)")
@@ -312,9 +331,10 @@ def main():
     ap.add_argument("--stream", nargs="*",
                     help="warps a block of the cluster kernel's streamed layout (none named: "
                          + " ".join(STREAM_LAYOUTS) + ")")
-    ap.add_argument("--stage-clocks", nargs="*", choices=CLUSTER_TARGETS,
-                    help="clocks an iteration of each stage of the cluster kernel's loop (none "
-                         "named: " + " ".join(STAGE_TARGETS) + ")")
+    ap.add_argument("--stage-clocks", nargs="*", choices=CLUSTER_TARGETS + tuple(
+                        FOLDED_STAGE_TARGETS),
+                    help="clocks an iteration of each stage of the cluster or the folded "
+                         "kernel's loop (none named: " + " ".join(STAGE_TARGETS) + ")")
     ap.add_argument("--timing-check", action="store_true",
                     help="time the package's generic kernel with and without the spin")
     opt = ap.parse_args()
@@ -340,9 +360,9 @@ def main():
         asked.update({name: held for name in targets if held})
     if opt.folded_at:
         shape, *layouts = opt.folded_at
-        if f"{shape}_folded" not in SHAPES or not layouts or opt.swarm_conn:
-            sys.exit("admm_kernel_sweep: --folded-at takes fov or lambda2 and at least one "
-                     "layout, and not beside --swarm-conn (both rewrite the SwarmConn line)")
+        if f"{shape}_folded" not in SHAPES or not layouts:
+            sys.exit("admm_kernel_sweep: --folded-at takes fov, conn or lambda2 and at least one "
+                     "layout")
         asked[f"{shape}_folded"] = layouts
     if not torch.cuda.is_available():
         sys.exit("admm_kernel_sweep: needs an NVIDIA GPU")
@@ -364,18 +384,17 @@ def main():
 
         def arrays(operand):
             return [torch.from_numpy(a).cuda() for a in fused_admm.random_phase_inputs(
-                np.random.default_rng(1), B, *shape, distinct=8 if big else None,
+                np.random.default_rng(1), B, *shape,
+                distinct=8 if big else 64 if shape[2] > 300 else None,
                 operand=operand)]
         keep = 16 if big else 256
         short = lambda a: [x[:keep].contiguous() if x.shape[0] == B else x for x in a]
-        data[name] = arrays("wk" if SHAPES[name].variant == "tiled" else "c")
-        # the twin takes the shape's operand: the same draw's (a C-form kernel at a tiled shape
-        # is held to the Woodbury form, to the float32 rounding that the C form skips)
-        own = data[name] if SHAPES[name].beside is None else arrays(None)
-        if SHAPES[name].beside is not None:
-            beside[name] = own
-        ref[name] = (short(data[name]),
-                     fused_admm.structured_admm_iterations_ref(*short(own), iters=20, **KW))
+        wk = SHAPES[name].variant == "tiled"
+        data[name] = arrays("wk" if wk else "c")
+        if SHAPES[name].beside is not None:          # the tiled kernel, on the same draw's WK
+            beside[name] = arrays("wk")
+        twin = fused_admm.woodbury_iterations_ref if wk else fused_admm.folded_iterations_ref
+        ref[name] = (short(data[name]), twin(*short(data[name]), iters=20, **KW))
 
     for i in range(max(map(len, asked.values()))):
         layouts = {name: lst[min(i, len(lst) - 1)] for name, lst in asked.items()}

@@ -15,8 +15,10 @@ another order. The twin takes the shape's operand (``random_phase_inputs``
 makes it): the Woodbury WK at the tiled kernel's shapes, the float64 C
 elsewhere; the Pallas kernel takes WK of the same draw. The C form of the
 loop (``folded_loop``, the algebra of the ``folded`` kernel, also at the
-tiled shapes) and the generic kernel's three stages (``generic_loop``) are
-held to the twin and to the Pallas kernel at the same bar (the ``cluster``
+tiled shapes), the ``folded`` kernel's float32 summation order
+(``folded_register_loop``) and the generic kernel's three stages
+(``generic_loop``) are held to the twin and to the Pallas kernel at the same
+bar (the ``cluster``
 kernel's loops: tests/test_torch_cluster.py). On the card every kernel
 variant (tiled, folded, generic, cluster) is held to it too.
 
@@ -120,6 +122,134 @@ def test_folded_loop_matches_pallas_kernel(B, shape):
     from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
     out_f = folded_loop(*map(torch.from_numpy, _inputs(B, seed=B, shape=shape, operand="c")),
                         **KW)
+    out_p = pallas(*map(jnp.asarray, _inputs(B, seed=B, shape=shape, operand="wk")),
+                   interpret=True, block=128, **KW)
+    for name, f, p in zip(("x", "zs", "zd", "ys", "yd"), out_f, out_p):
+        np.testing.assert_allclose(f.numpy(), np.asarray(p), rtol=2e-4, atol=2e-4, err_msg=name)
+
+
+def folded_layouts():
+    """{(n, m_s, m_d): (T, RG, CG, P)} of the ``FoldedShape<...>`` lines of
+    csrc/structured_admm_folded.cu: threads a block, the grid of register
+    tiles, threads a row of C."""
+    import re
+    src = (_build.SOURCES[0].parent / "structured_admm_folded.cu").read_text()
+    return {tuple(v[:3]): tuple(v[3:]) for v in (
+        tuple(map(int, m.split(","))) for m in re.findall(r"= FoldedShape<([\d, ]+)>;", src))}
+
+
+def _fold(v, dim):
+    """Pairwise sums of the halves of ``dim`` until one entry is left: the order
+    of a butterfly whose first step pairs the lanes furthest apart."""
+    while v.shape[dim] > 1:
+        h = v.shape[dim] // 2
+        v = v.narrow(dim, 0, h) + v.narrow(dim, h, h)
+    return v.squeeze(dim)
+
+
+def _fma(a, b, s):
+    """float32 a b + s with one rounding (the product of two float32 is exact in
+    float64)."""
+    return (a.double() * b.double() + s.double()).float()
+
+
+def folded_register_loop(Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, C,
+                         x0, zs0, zd0, ys0, yd0, *, iters, sigma, alpha, layout=None):
+    """The loop in the float32 summation order of the ``folded`` kernel
+    (csrc/structured_admm_folded.cu) with the layout (T, RG, CG, P) of the
+    shape's ``FoldedShape`` line, from the lane's float64 C. An iteration: each thread's column sums of r over the
+    TR rows of its tile (one multiply-add at a time), met across the warp's
+    32 / CG row groups by the butterfly, then RHS_j = (sigma x - q) + the sum
+    of every P-th warp's partial in warp order, met across the P threads by
+    the butterfly; xt = C RHS in float64; each thread's row sums of xt over
+    the TC columns of its tile, met across the row group's CG threads by the
+    butterfly; the row update of ``row_update`` (structured_admm.cuh)."""
+    layouts = folded_layouts()
+    T, RG, CG, P = layout or layouts[qb.shape[1], A_sb.shape[0], Ad.shape[1]]
+    B, n = qb.shape
+    m_s, m_d = A_sb.shape[0], Ad.shape[1]
+    m = m_s + m_d
+    TR, TC, NW, G = -(-m // RG), -(-n // CG), T // 32, 32 // CG
+    assert TR <= CG and RG * CG <= T and n * P <= T
+    A = torch.zeros(B, RG * TR, CG * TC)
+    A[:, :m_s, :n] = A_sb
+    A[:, m_s:m, :n] = Ad
+    A = A.view(B, RG, TR, CG, TC)
+    # the rows' state, padded to the grid (pad rows: rho 1, bounds 0, never read back)
+    pad = lambda a, v: torch.nn.functional.pad(a, (0, RG * TR - m), value=v)
+    rho = pad(torch.cat([rho_s.expand(B, -1), rho_d], 1), 1.0)
+    lo, up = pad(torch.cat([lbs, lbd], 1), 0.0), pad(torch.cat([ubs, ubd], 1), 0.0)
+    z, y = pad(torch.cat([zs0, zd0], 1), 0.0), pad(torch.cat([ys0, yd0], 1), 0.0)
+    x, C = x0, C.double()
+    alpha32, beta = torch.tensor(alpha, dtype=torch.float32), torch.tensor(1 - alpha, dtype=torch.float32)
+    r = rho * z - y
+    for _ in range(iters):
+        rr = r.view(B, RG, TR)
+        cols = torch.zeros(B, RG, CG, TC)
+        for i in range(TR):
+            cols = _fma(A[:, :, i], rr[:, :, i, None, None], cols)
+        # row groups past the grid's (threads without a tile) add zeros
+        cols = torch.nn.functional.pad(cols, (0, 0, 0, 0, 0, NW * G - RG))
+        warp = _fold(cols.view(B, NW, G, CG * TC), 2)[..., :n]           # [B, NW, n]
+        s = torch.zeros(B, P, n)
+        for k in range(-(-NW // P)):
+            for p in range(P):
+                if p + P * k < NW:
+                    s[:, p] = s[:, p] + warp[:, p + P * k]
+        RHS = (sigma * x - qb) + _fold(s, 1)
+        xt = torch.einsum("bij,bj->bi", C, RHS.double()).float()
+        xv = torch.nn.functional.pad(xt, (0, CG * TC - n)).view(B, 1, 1, CG, TC)
+        rows = torch.zeros(B, RG, TR, CG)
+        for c in range(TC):
+            rows = _fma(A[..., c], xv[..., c], rows)
+        zA = _fold(rows, 3).reshape(B, RG * TR)
+        x = alpha32 * xt + beta * x
+        zr = alpha32 * zA + beta * z
+        zn = torch.minimum(torch.maximum(zr + y / rho, lo), up)
+        y = y + rho * (zr - zn)
+        z = zn
+        r = rho * z - y
+    return x, z[:, :m_s], z[:, m_s:m], y[:, :m_s], y[:, m_s:m]
+
+
+REGISTER_LOOP_CASES = [(5, FOV), (2, SWARM_FOV), (3, SWARM_CONN), (4, CONN), (6, CONN_LAMBDA2)]
+
+
+def test_folded_layouts_are_the_instances():
+    """The model reads the instances of the kernel: the 32-agent fov and
+    connectivity shapes and the fov flagship, which take it, and the
+    connectivity and λ₂/CLF shapes, launched by name; each with a row of its
+    group for every thread (TR <= CG) and P threads a row of C."""
+    layouts = folded_layouts()
+    assert set(layouts) == {SWARM_FOV, SWARM_CONN, FOV, CONN, CONN_LAMBDA2}
+    for (n, m_s, m_d), (T, RG, CG, P) in layouts.items():
+        assert -(-(m_s + m_d) // RG) <= CG and RG * CG <= T and n * P <= T and T % 32 == 0
+
+
+@pytest.mark.parametrize("B,shape", REGISTER_LOOP_CASES)
+def test_folded_register_loop_matches_twin(B, shape):
+    """The folded kernel's summation order against the twin of the shape, at
+    the bar of two float32 loops (rtol = atol = 2e-4); at the tiled shapes the
+    twin is the Woodbury form, whose float32 rounding of S and Ad S the C form
+    skips."""
+    out_f = folded_register_loop(
+        *map(torch.from_numpy, _inputs(B, seed=B, shape=shape, operand="c")), **KW)
+    out_t = structured_admm_iterations_ref(*map(torch.from_numpy, _inputs(B, seed=B, shape=shape)),
+                                           **KW)
+    for name, f, t in zip(("x", "zs", "zd", "ys", "yd"), out_f, out_t):
+        assert f.shape == t.shape and f.dtype == torch.float32
+        torch.testing.assert_close(f, t, rtol=2e-4, atol=2e-4, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("B,shape", REGISTER_LOOP_CASES)
+def test_folded_register_loop_matches_pallas_kernel(B, shape):
+    """The folded kernel's summation order against the JAX package's kernel
+    itself (interpret mode) on the same inputs, at the bar the twin is held
+    to."""
+    import jax.numpy as jnp
+    from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
+    out_f = folded_register_loop(
+        *map(torch.from_numpy, _inputs(B, seed=B, shape=shape, operand="c")), **KW)
     out_p = pallas(*map(jnp.asarray, _inputs(B, seed=B, shape=shape, operand="wk")),
                    interpret=True, block=128, **KW)
     for name, f, p in zip(("x", "zs", "zd", "ys", "yd"), out_f, out_p):
@@ -254,10 +384,10 @@ def _need_gpu():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,B,took", [
-    (FOV, 1001, "tiled"),            # a ragged last block
-    (FOV, 3, "tiled"),               # fewer lanes than a block holds
-    (CONN, 1001, "tiled"),
-    (CONN, 3, "tiled"),
+    (FOV, 1001, "folded"),           # the fov flagship: one lane a block, the lane's C
+    (FOV, 3, "folded"),
+    (CONN, 1001, "tiled"),           # a ragged last block
+    (CONN, 3, "tiled"),              # fewer lanes than a block holds
     (CONN_LAMBDA2, 1001, "tiled"),
     (CONN_LAMBDA2, 3, "tiled"),
     (SWARM_CONN, 1001, "folded"),    # one lane a block, WK folded into the lane's C
@@ -349,8 +479,8 @@ def test_every_team_takes_a_redesigned_kernel_on_gpu():
     """Every fov team of 2 to 512 agents and every connectivity team of 2 to
     512 robots takes tiled, folded, generic or cluster: every team to 29
     agents or robots one of the first three, the larger ones cluster (but the
-    32-agent fov team, folded's); the tiled kernel exactly the shapes that
-    take WK."""
+    32-agent fov team, folded's); folded the fov teams of 8 (the flagship) and
+    32 agents; the tiled kernel exactly the shapes that take WK."""
     _need_gpu()
     lib = fused_admm._lib()
     fov = {A: fused_admm.fov_team_shape(A) for A in range(2, 513)}
@@ -361,9 +491,29 @@ def test_every_team_takes_a_redesigned_kernel_on_gpu():
         took = {size: VARIANTS[c] for size, c in codes.items()}
         assert {size: v for size, v in took.items()
                 if (v == "cluster") != (size > 29 and v != "folded")} == {}
-        assert [size for size, v in took.items() if v == "folded"] == ([32] if teams is fov else [])
+        assert [size for size, v in took.items() if v == "folded"] == ([8, 32] if teams is fov else [])
         assert {size for size, v in took.items() if v == "tiled"} == \
             {size for size, s in teams.items() if fused_admm.takes_wk(*s)}
+
+
+@pytest.mark.cuda
+def test_fov_flagship_takes_the_kernel_of_its_route_on_gpu():
+    """The fov flagship (43, 127, 84), the main path, takes the kernel of its
+    operand's form: folded for the lane's C (``takes_wk`` false), tiled for
+    WK; and the tiled kernel, launched by name there on WK, agrees with the
+    Woodbury twin."""
+    _need_gpu()
+    lib = fused_admm._lib()
+    assert VARIANTS[lib.structured_admm_variant(*FOV)] == \
+        ("tiled" if fused_admm.takes_wk(*FOV) else "folded")
+    arrays = [torch.from_numpy(a).cuda() for a in _inputs(37, seed=25, shape=FOV, operand="wk")]
+    before = structured_admm_iterations.launches
+    out_k = fused_admm.launch_variant(lib, "tiled", arrays, **KW)
+    out_t = fused_admm.woodbury_iterations_ref(*arrays, **KW)
+    torch.cuda.synchronize()
+    assert structured_admm_iterations.launches == before     # only the wrapper counts
+    for a, b in zip(out_k, out_t):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.cuda

@@ -8,8 +8,8 @@ The factor is held to the product it inverts and to the Woodbury form
 (rho = 1e-12, as ``_solve`` masks inactive rows); a lane that is not SPD
 comes out NaN and leaves the other lanes bitwise as they were. Then
 ``StructuredQPOperator.solve`` of the port in the C form is held against the
-JAX operator (its plain scan loop) at the shapes of the 32-, 24- and
-85-agent fov teams and at a synthetic shape past what the cluster kernel's
+JAX operator (its plain scan loop) at the shapes of the 32-, 24-, 85- and
+8-agent (the fov flagship) fov teams and at a synthetic shape past what the cluster kernel's
 first layouts held (n = 420, few rows), in float64, at the bars of
 tests/test_torch_slice.py (z to rtol = atol = 2e-4, the converged flags
 equal).
@@ -105,11 +105,13 @@ def _operator_problem(rng, n, m_s, m_d, B):
 
 
 @pytest.mark.parametrize("shape", [fused_admm.fov_team_shape(32), fused_admm.fov_team_shape(24),
-                                   fused_admm.fov_team_shape(85), (420, 10, 2)])
+                                   fused_admm.fov_team_shape(85), (420, 10, 2),
+                                   fused_admm.fov_team_shape(8)])
 def test_solve_in_the_c_form_matches_jax(shape):
-    """The port's operator (C form: none of these shapes is a tiled one)
-    against the JAX operator's plain scan loop (Woodbury form) on two lanes,
-    float64, 60 iterations (40 + 20 over the two rho phases)."""
+    """The port's operator (C form: none of these shapes is a tiled one; the
+    fov team of 8 is the fov flagship (43, 127, 84)) against the JAX
+    operator's plain scan loop (Woodbury form) on two lanes, float64, 60
+    iterations (40 + 20 over the two rho phases)."""
     import jax.numpy as jnp
     from mpc_cbf_tpu.ops.qp.structured import (StructuredConfig as JStructuredConfig,
                                                StructuredQPOperator as JStructuredQPOperator)
