@@ -7,16 +7,17 @@ sm_90a: an H100). It
 1. prints the card (nvidia-smi name and power limit);
 2. builds the CUDA kernels from csrc/ into build/kernels/ (one nvcc per
    source, started together) and times it; fails if ptxas reports a spill
-   in an instance of the cluster kernel's register layout or of the folded
-   kernel (both hold the rows in registers);
+   in an instance of the cluster kernel's register layout, of the folded
+   kernel or of the tiled kernel's tensor-core loop (all hold their rows in
+   registers);
 3. holds every variant of the fused ADMM kernel against its plain PyTorch
    twin at 40 iterations to rtol = atol = 2e-4, each through the wrapper at
    a shape that takes it: folded at the fov flagship's shapes (43, 127,
    84; the main path) on 1001 and 3 lanes and for the step's longest phase
    of 150 iterations, tiled there by name on WK against the Woodbury twin,
    tiled at the connectivity and λ₂/CLF connectivity shapes (1001 lanes: a
-   ragged last block; 3 lanes: fewer than a block holds) and folded there
-   by name, folded at the 32-agent connectivity shapes (36,
+   ragged last block; 3 lanes: fewer than a block holds; 1001 lanes for the
+   step's longest phase of 150 iterations) and folded there by name, folded at the 32-agent connectivity shapes (36,
    126, 62) on 1001 and 3 lanes (and for its longest phase, 50) and the 32-agent fov shapes (67, 151, 372)
    on 64 and 3 lanes and, on 64 lanes, for the 550 iterations of the step's
    longest phase, generic at the shapes (38, 128, 4) and the 3 lanes of
@@ -58,9 +59,10 @@ sm_90a: an H100). It
    the C builds of the step's phases (folded_c: cuBLAS and cuSOLVER), for
    tiled the Woodbury builds (woodbury); prints
    each time beside its bound
-   (the slowest of the float32 operations, the float64 operations and the
-   bytes, from the shapes and the card's peaks; the operations are the
-   fewest a known form of the loop needs, see bound()), and the
+   (the slowest of the float32 operations, the float64 operations, the
+   TF32 tensor-core operations and the bytes, from the shapes and the card's
+   peaks; the operations are the fewest a known form of the loop needs, see
+   bound()), and the
    microseconds and clocks of one iteration (at the SM clock nvidia-smi
    reads after the window; the log adds the barriers an iteration the source
    writes);
@@ -72,7 +74,8 @@ sm_90a: an H100). It
    usable rate) and through the plain loop: the usable-lane rates must agree
    within 1 point and stay at or above 0.70;
 6. runs one connectivity control step at 32768 lanes (tiled kernel, 4
-   launches, usable >= 0.99);
+   launches, usable >= 0.99), its stage split, and the same step through the
+   plain loop (success flags equal on at least 99 % of the lanes);
 7. runs one 32-agent control step of benchmarks/swarm.py's recipe (128
    scenarios x 32 agents = 4096 lanes) through the ADMM: connectivity (100
    iterations; the folded kernel, 4 launches, usable >= 0.99) and fov (600,
@@ -204,8 +207,9 @@ follow the host): every kernel variant within 1.3e-4 of its twin (under
 phases at 8192 lanes 7.1 ms in the folded kernel (bound 1.17 ms, 16.4 % of
 it reached; twin 157 ms) and 11.3 ms of C builds, against 16.0 ms in the
 tiled kernel by name and 89 ms of Woodbury builds; connectivity at 32768
-lanes 19.4 ms (bound 2.45 ms, 12.6 %; folded by name 19.1); the λ₂/CLF
-step at 32768 lanes 20.6 ms (bound 2.60 ms; folded by name 19.1); the
+lanes 8.8-9.1 ms through tiled's tensor-core loop (bound 0.95 ms, 10.4 %;
+folded by name 19.0); the λ₂/CLF step at 32768 lanes 10.3-10.9 ms (bound
+0.95 ms; folded by name 18.9); the
 folded kernel 2.07 ms for the 32-agent connectivity step's four launches at
 4096 lanes (bound 0.33 ms) and 39.8 ms for the 32-agent fov step's four
 launches at 4096 lanes (bound 6.86 ms, 17.2 %); generic 0.48 ms for one
@@ -219,7 +223,8 @@ chunk of 256 agents (rows and C streamed; twin 776 ms) and 941 ms at one of
 0.47 ms (3 lanes) to 105 ms (256 lanes of 400 agents) a step's four phases;
 fov ADMM usable 0.7101 (plain route 0.7101, flags equal; the tiled kernel
 on WK 0.7097), 52-71 ms per call;
-connectivity ADMM usable 0.9933, 26-31 ms; 32-agent connectivity usable
+connectivity ADMM usable 0.9933, 16 ms, flags equal to the plain loop's on
+every lane; 32-agent connectivity usable
 1.0000, 10-12 ms (f32 IPM: 1.0000, 225-450 ms); 32-agent fov usable 0.9902
 with the kernel and 0.9900 with the plain loop (one lane's flag differs),
 104 ms, peak 2.05 GiB (f32 IPM:
@@ -366,9 +371,10 @@ SOURCES = {"tiled": "mpc_cbf_torch/csrc/structured_admm_tiled.cu",
 #: times in the log only
 BARRIERS = {"generic": 3, "folded": 3, "cluster": 4}
 # the card's peaks, NVIDIA's H100 SXM data sheet at 700 W: float32 outside the
-# tensor cores, float64 on the tensor cores (the tiled kernel runs their
-# mma.sync.m8n8k4.f64), HBM3
-PEAK_F32, PEAK_F64, PEAK_BYTES = 67e12, 67e12, 3.35e12
+# tensor cores, float64 on the tensor cores (the kernels run their
+# mma.sync.m8n8k4.f64), dense TF32 on the tensor cores (the tiled kernel's
+# 3xTF32 products), HBM3
+PEAK_F32, PEAK_F64, PEAK_TF32, PEAK_BYTES = 67e12, 67e12, 495e12, 3.35e12
 SWARM_PHASES = {"connectivity": (50, 50, 50, 50),     # StructuredConfig(iters=100), cold and warm
                 "fov": (550, 50, 150, 50)}            # iters=600, iters_tail=200
 RUN_SIM_PHASES = (150, 50, 150, 50)                   # StructuredConfig(), run_sim's ADMM
@@ -391,21 +397,32 @@ def bound(B: int, n: int, m_s: int, m_d: int, phases) -> tuple:
     [A_s; A_d]'r and [A_s; A_d] xt in float32 (2 m n) and C RHS in float64
     (n^2). The C form (every other shape): the caller factors C, so a launch
     does only the latter, and reads a float64 C [n, n] a lane in place of WK
-    and no Ms_inv. float32 and float64 run at their own peaks on pipes of
-    their own, so the slower of the two sets the time of a form; every launch
-    reads each input once and writes each output once."""
+    and no Ms_inv. Either form may take its two products with the shared A_s
+    (A_s' r_s and A_s xt, 2 m_s n multiply-adds an iteration) as 3xTF32 on the
+    tensor cores across the lanes (the tiled kernel's form since it was
+    redesigned for them): 3 x 2 x 2 m_s n operations at the dense TF32 rate,
+    beside the lane's own products with A_d on the float32 pipe (3 m_d n
+    multiply-adds in the Woodbury form, 2 m_d n in the C form) and the
+    float64 ones. float32, float64 and the TF32 tensor cores run at their own
+    peaks on pipes of their own, so the slowest sets the time of a form, and
+    the bound is the fastest form; every launch reads each input once and
+    writes each output once."""
     m, its, launches = m_s + m_d, sum(phases), len(phases)
     folded = max(its * 2 * 2 * m * n / PEAK_F32,
                  (its * 2 * n * n + launches * 2 * (n * m_d * n + n ** 3)) / PEAK_F64)
+    tf32 = its * 3 * 2 * 2 * m_s * n / PEAK_TF32       # the shared products, 3xTF32
     per_lane = 4 * (2 * n + 4 * m_s + 5 * m_d + n * m_d) + 4 * (n + 2 * m)
     shared = 4 * (m_s * n + m_s)
     if fused_admm.takes_wk(n, m_s, m_d):
         written = max(its * 2 * (2 * m * n + m_d * n) / PEAK_F32,
                       its * 2 * (n * n + n * m_d) / PEAK_F64)
-        ops = B * min(written, folded)
+        tensor = max(tf32, its * 2 * 3 * m_d * n / PEAK_F32,
+                     its * 2 * (n * n + n * m_d) / PEAK_F64)
+        ops = B * min(written, folded, tensor)
         per_lane, shared = per_lane + 4 * n * m_d, shared + 4 * n * n
     else:
-        ops = B * max(its * 2 * 2 * m * n / PEAK_F32, its * 2 * n * n / PEAK_F64)
+        tensor = max(tf32, its * 2 * 2 * m_d * n / PEAK_F32, its * 2 * n * n / PEAK_F64)
+        ops = B * min(max(its * 2 * 2 * m * n / PEAK_F32, its * 2 * n * n / PEAK_F64), tensor)
         per_lane += 8 * n * n
     moved = launches * (B * per_lane + shared) / PEAK_BYTES
     return max(ops, moved) * 1e3, "operations" if ops >= moved else "bytes"
@@ -473,9 +490,9 @@ def build() -> None:
     for line in lines:
         if "registers" in line or "spill" in line or "# " in line[:2]:
             log(f"  {line.strip()}")
-    # the cluster kernel's register layout and the folded kernel hold their rows in registers:
-    # no instance may spill
-    for kernel in ("reg_kernel", "folded_kernel"):
+    # the cluster kernel's register layout, the folded kernel and the tiled kernel's tensor-core
+    # loop hold their rows in registers: no instance may spill
+    for kernel in ("reg_kernel", "folded_kernel", "TcShape"):
         spilled = [line.split("'")[1] for i, line in enumerate(lines)
                    if "Compiling entry function" in line and kernel in line
                    and not any("0 bytes spill stores, 0 bytes spill loads" in ln
@@ -537,8 +554,11 @@ def check_kernel(iters: int = 40) -> dict:
         ("tiled_fov", "fov through the tiled kernel", FOV_SHAPES, 1001, "tiled"),
         ("tiled_fov", "fov through the tiled kernel, fewer lanes than a block", FOV_SHAPES, 3,
          "tiled"),
+        # the connectivity shapes: the tiled kernel's tensor-core loop (32 lanes a block)
         ("tiled_connectivity", "connectivity", CONN_SHAPES, 1001, None),
         ("tiled_connectivity", "connectivity, fewer lanes than a block", CONN_SHAPES, 3, None),
+        ("tiled_connectivity", "connectivity, the step's longest phase", CONN_SHAPES, 1001, None,
+         max(PHASES)),
         ("folded_swarm_connectivity", "32-agent connectivity", SWARM_CONN_SHAPES, 1001, None),
         ("folded_swarm_connectivity", "32-agent connectivity, 3 lanes", SWARM_CONN_SHAPES, 3, None),
         ("folded_swarm_connectivity", "32-agent connectivity, the step's longest phase",
@@ -553,6 +573,8 @@ def check_kernel(iters: int = 40) -> dict:
         ("tiled_lambda2", "connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES, 1001, None),
         ("tiled_lambda2", "connectivity with the λ₂/CLF rows, fewer lanes than a block",
          LAMBDA2_SHAPES, 3, None),
+        ("tiled_lambda2", "connectivity with the λ₂/CLF rows, the step's longest phase",
+         LAMBDA2_SHAPES, 1001, None, max(PHASES)),
         # the folded kernel by name at the shapes that take the tiled one (timed beside it)
         ("folded_connectivity", "connectivity through the folded kernel", CONN_SHAPES, 1001,
          "folded"),
@@ -751,8 +773,9 @@ def time_phases(what: str, shapes, B: int, phases=PHASES, variant: str | None = 
                c_build_ms=c_ms, wk_build_ms=wk_ms)
     msg = (f"{what}, {len(phases)} phases {phases} at B={B}: kernel {k_sum:.3f} ms, "
            f"{bound_text(b_ms, k_sum)}, by {by} (peaks {PEAK_F32 / 1e12:.0f} / "
-           f"{PEAK_F64 / 1e12:.0f} TFLOP/s float32 / float64, {PEAK_BYTES / 1e12:.2f} TB/s); "
-           f"twin {t_sum:.3f} ms; an iteration {per_iter_text(k_sum, its, mhz, variant)}"
+           f"{PEAK_F64 / 1e12:.0f} / {PEAK_TF32 / 1e12:.0f} TFLOP/s float32 / float64 / TF32, "
+           f"{PEAK_BYTES / 1e12:.2f} TB/s); twin {t_sum:.3f} ms; an iteration "
+           f"{per_iter_text(k_sum, its, mhz, variant)}"
            + (f"; the C builds of the {len(phases)} phases (folded_c) {c_ms:.3f} ms"
               if c_ms is not None else
               f"; the Woodbury builds of the {len(phases)} phases (woodbury) {wk_ms:.3f} ms"))
@@ -951,9 +974,14 @@ def fov_main_path(batch: int = 8192):
     return launches
 
 
-def connectivity_path(batch: int = 32768) -> int:
+def connectivity_path(batch: int = 32768, split: bool = True) -> int:
+    """The connectivity flagship through its route (the tiled kernel, 4
+    launches a call, asserted; usable >= 0.99), and the same step through the
+    plain loop: the success flags may differ on at most 1 % of the lanes.
+    ``split``: one more call with a sync around each stage."""
     ctrl, inputs = bench_problem("connectivity", batch)
-    step = control_step(ctrl, inputs)
+    simpc = admm_stepper(ctrl)
+    step = lambda: simpc.optimize_batch(*inputs)
     step()
     reset_counts()
     t0 = sync_clock()
@@ -968,6 +996,27 @@ def connectivity_path(batch: int = 32768) -> int:
         f"{batch * 2 / dt:.1f} solves/s")
     if usable < 0.99:
         raise AssertionError(f"connectivity ADMM usable rate {usable:.4f} < 0.99")
+    if split:
+        stage_split(simpc, inputs)
+    plain = control_step(ctrl, inputs, use_kernel=False)
+    plain()
+    before = KERNEL.launches
+    t0 = sync_clock()
+    res_t = plain()
+    dt_t = sync_clock() - t0
+    if KERNEL.launches != before:
+        raise AssertionError("the plain loop launched the kernel")
+    usable_t = check_result(res_t, batch)
+    differ = int((res.success != res_t.success).sum())
+    both = res.success & res_t.success
+    dev = (res.coeffs - res_t.coeffs).abs().amax(-1)[both]
+    log(f"connectivity, {batch} lanes, plain loop: usable {usable_t:.4f}, {dt_t * 1e3:.2f} ms; "
+        f"success flags differ on {differ} lanes ({differ / batch:.4f}); coefficients on "
+        f"{int(both.sum())} lanes usable in both: median |dev| {float(dev.median()):.2e}, "
+        f"p99 {float(dev.quantile(0.99)):.2e}, max {float(dev.max()):.2e}")
+    if differ > 0.01 * batch:
+        raise AssertionError(f"connectivity: the kernel's and the plain loop's success flags "
+                             f"differ on {differ} of {batch} lanes (bar: at most 1 %)")
     return launches
 
 

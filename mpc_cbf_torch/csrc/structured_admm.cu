@@ -28,8 +28,10 @@
 // structured_admm_tiled.cu), and the bytes of the rows where they do not.
 // Four kernels, chosen from the shape alone by structured_admm_variant():
 //   tiled     structured_admm_tiled.cu: compiled per shape (connectivity,
-//             λ₂/CLF connectivity; the fov flagship by name only), several
-//             lanes a block, A_d in registers. Takes WK.
+//             λ₂/CLF connectivity; the fov flagship by name only, on an
+//             earlier loop), 32 lanes a block, the two products with the
+//             shared A_s on the TF32 tensor cores (3xTF32) with the rows'
+//             state in the registers that receive their sums. Takes WK.
 //   folded    structured_admm_folded.cu: compiled per shape (the fov flagship,
 //             32-agent fov and connectivity), one lane a block, [A_s; A_d]
 //             and the rows' state in registers.

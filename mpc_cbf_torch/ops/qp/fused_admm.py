@@ -6,7 +6,8 @@ of ``StructuredQPOperator._solve`` for a whole batch of lanes. On CUDA
 float32 tensors it launches one of the kernels of ``csrc/`` (built at first
 use by ``mpc_cbf_torch._build``), chosen from the shape alone (``VARIANTS``):
 ``tiled`` for the shapes of ``TILED_SHAPES`` in
-``csrc/structured_admm_tiled.cu`` (the connectivity control steps),
+``csrc/structured_admm_tiled.cu`` (the connectivity control steps: 32 lanes
+a block, the shared A_s products on the TF32 tensor cores in 3xTF32),
 ``folded`` for those of ``csrc/structured_admm_folded.cu`` (the fov
 flagship and the 32-agent fov and connectivity teams: one lane a block),
 ``generic`` for the other shapes

@@ -13,9 +13,12 @@ The package's kernel sources carry one layout per shape: the ``Shape<...>``
 lines at the end of mpc_cbf_torch/csrc/structured_admm_tiled.cu (fov,
 connectivity, connectivity with the λ₂/CLF rows) and the ``FoldedShape<...>``
 lines at the end of csrc/structured_admm_folded.cu (32-agent fov, 32-agent
-connectivity, the fov flagship). A LAYOUT of the tiled kernel is G,L,TPL
-(groups a block, lanes a group, threads a lane) or G,L,TPL,RG,CG (also the
-grid of register tiles A_d is cut into); one of the folded kernel is
+connectivity, the fov flagship). A LAYOUT of the tiled kernel at the
+connectivity shapes (--conn, --lambda2: its tensor-core loop, ``TcShape``) is
+L,RP,RG,CG (lanes a block, row parts a lane group of 16, the grid of
+register tiles A_d is cut into); at the fov shape
+(--fov: the earlier loop, ``Shape``) G,L,TPL (groups a block, lanes a group,
+threads a lane) or G,L,TPL,RG,CG; one of the folded kernel is
 T,RG,CG,P (threads a block, the grid of register tiles [A_s; A_d] is cut
 into, threads a row of C). Every kernel gets the operand it takes
 (random_phase_inputs: WK for tiled, the float64 C for the others) of the
@@ -60,16 +63,20 @@ shapes repeat 8 distinct lanes.
 400 agents on 256 lanes (550 + 50 + 150 + 50); a count that does not fit a
 block is reported as refused.
 --stage-clocks builds a copy of csrc/ with ADMM_STAGE_CLOCKS defined (the
-STAGE markers of the cluster and folded kernels then count clocks; the
-package's build leaves them empty) and prints, for one launch of 150
+STAGE markers of the cluster, folded and tiled kernels then count clocks;
+the package's build leaves them empty) and prints, for one launch of 150
 iterations at each SHAPE (none named: cluster_fov128 and cluster_fov64; the
-folded kernel's: swarm_fov, swarm_conn, fov_folded; on the lanes of one
-launch of their steps), the clocks thread 0 of block 0 spent an iteration in
-each stage of the loop: for cluster the column sums, the block meeting,
-barrier 1, RHS, xt = C RHS, barrier 2, the row sums and updates; for folded
-the column sums (with the r of the rows), barrier 1, RHS, barrier 2, xt = C
-RHS, barrier 3, the row sums, barrier 4, the row updates, barrier 5 (a
-stage the loop does not have counts 0).
+folded kernel's: swarm_fov, swarm_conn, fov_folded; the tiled kernel's:
+conn, lambda2; on the lanes of one launch of their steps), the clocks
+thread 0 of block 0 spent an iteration in each stage of the loop: for
+cluster the column sums, the block meeting, barrier 1, RHS, xt = C RHS,
+barrier 2, the row sums and updates; for folded the column sums (with the r
+of the rows), barrier 1, RHS, barrier 2, xt = C RHS, barrier 3, the row
+sums, barrier 4, the row updates, barrier 5 (a stage the loop does not have
+counts 0); for tiled, its tensor-core loop's RHS and S = Ms_inv RHS (thread
+0 is in a RHS warp), wait 1, t and xt = S - WK t, the dynamic rows, wait 2,
+A_s xt, the shared rows' updates and A_s' r_s, wait 3 (the earlier loop, at
+the fov shape, has no markers).
 A LAYOUT of the generic kernel is TC,MAXW[,P[,MINB]]: GenericShape<TC, MAXW,
 P, MINB> (column slots a lane, warps a block at most, threads a row of C
 (default 4), blocks an SM for the launch bounds (default 1)). --timing-check builds
@@ -146,15 +153,21 @@ STREAM_TARGETS = tuple(name for name in SHAPES if name.startswith("stream"))
 STREAM_LAYOUTS = ["8", "4"]
 STAGE_TARGETS = ["cluster_fov128", "cluster_fov64"]
 FOLDED_STAGE_TARGETS = ["swarm_fov", "swarm_conn", "fov_folded"]
+TILED_STAGE_TARGETS = ["conn", "lambda2"]
 #: the stages of an iteration, by kernel; the reader of its clocks
 STAGES = {"cluster": ("column sums", "block meeting", "barrier 1", "RHS", "xt = C RHS",
                       "barrier 2", "row sums and updates"),
           "folded": ("column sums", "barrier 1", "RHS", "barrier 2", "xt = C RHS", "barrier 3",
-                     "row sums", "barrier 4", "row updates", "barrier 5")}
+                     "row sums", "barrier 4", "row updates", "barrier 5"),
+          "tiled": ("RHS and S = Ms_inv RHS", "wait 1", "t and xt = S - WK t", "dynamic rows",
+                    "wait 2", "A_s xt", "shared row updates and A_s' r_s", "wait 3")}
 STAGE_READERS = {"cluster": "structured_admm_stage_clocks",
-                 "folded": "structured_admm_folded_stage_clocks"}
+                 "folded": "structured_admm_folded_stage_clocks",
+                 "tiled": "structured_admm_tiled_stage_clocks"}
 STAGE_SLOTS = 10                                      # kStageSlots of csrc/structured_admm.cuh
 KW = dict(sigma=1e-6, alpha=1.6)
+#: the tensor-core loop's layout timed by default: the shipped one
+TILED_DEFAULTS = ["32,8,2,8"]
 
 
 def cuda_ms(fn, reps=3, spin=True):
@@ -183,8 +196,12 @@ def build(layouts: dict, defines=()):
     for src in _build.SOURCES + _build.HEADERS:
         text = src.read_text()
         for name, layout in layouts.items():
+            if src.name != SHAPES[name].source:      # an alias may name a line of another source
+                continue
             alias = SHAPES[name].alias
-            numbers = layout.count(",") + 1           # tiled: 3 (G,L,TPL) or 5 (RG,CG too); folded: 3
+            # the numbers replaced after the shape: tiled 3 or 5 at fov (G,L,TPL[,RG,CG]), 4 at
+            # the connectivity shapes (L,RP,RG,CG)
+            numbers = layout.count(",") + 1
             if name.startswith("stream"):            # one count of warps
                 text, n = re.subn(r"constexpr int kStreamWarps\[\] = \{[^;]*\};",
                                   f"constexpr int kStreamWarps[] = {{{layout}}};", text)
@@ -208,7 +225,7 @@ def build(layouts: dict, defines=()):
             else:
                 text, n = re.subn(rf"(using {alias} = \w*Shape<\d+, \d+, \d+)"
                                   + r", \d+" * numbers, rf"\1, {layout}", text)
-            if n != (src.name == SHAPES[name].source):
+            if n != 1:
                 raise RuntimeError(f"{src.name}: {n} lines name the layout of {alias}")
         (out / src.name).write_text(text)
     lib = out / "kernels.so"
@@ -263,8 +280,8 @@ def step_ms(lib, variant, args, phases, reps=3):
 
 
 def stage_clocks(names, iters=150):
-    """Clocks an iteration of each stage of the loop of the cluster or the folded kernel (thread 0
-    of block 0, one launch of ``iters`` iterations after a warm-up) at the shapes ``names``."""
+    """Clocks an iteration of each stage of the loop of the cluster, folded or tiled kernel (thread
+    0 of block 0, one launch of ``iters`` iterations after a warm-up) at the shapes ``names``."""
     lib, report = build({}, defines=("ADMM_STAGE_CLOCKS",))
     got = np.zeros(STAGE_SLOTS, np.uint64)
     for name in names:
@@ -273,7 +290,8 @@ def stage_clocks(names, iters=150):
         read.argtypes = [ctypes.c_void_p]
         distinct = 8 if variant == "cluster" else 64 if shape[2] > 300 else None
         args = [torch.from_numpy(a).cuda() for a in fused_admm.random_phase_inputs(
-            np.random.default_rng(1), B, *shape, distinct=distinct, operand="c")]
+            np.random.default_rng(1), B, *shape, distinct=distinct,
+            operand="wk" if variant == "tiled" else "c")]
         for _ in range(2):                            # a warm-up launch, then the one read
             fused_admm.launch_variant(lib, variant, args, iters=iters, **KW)
             torch.cuda.synchronize()
@@ -307,9 +325,11 @@ def timing_check(windows=10, reps=3):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--fov", nargs="*", help="default: 1,4,160 1,4,128 2,2,128")
-    ap.add_argument("--conn", nargs="*", help="default: 2,4,64 1,8,64 2,4,96")
-    ap.add_argument("--lambda2", nargs="*", help="default: 2,4,64,2,12 2,4,64,2,9 2,4,64,7,9")
+    ap.add_argument("--fov", nargs="*", help="G,L,TPL[,RG,CG]; default: 1,4,160 1,4,128 2,2,128")
+    ap.add_argument("--conn", nargs="*",
+                    help="L,RP,RG,CG; default: " + " ".join(TILED_DEFAULTS))
+    ap.add_argument("--lambda2", nargs="*",
+                    help="L,RP,RG,CG; default: " + " ".join(TILED_DEFAULTS))
     ap.add_argument("--swarm-conn", nargs="*",
                     help="T,RG,CG,P, e.g. 192,48,4,4 192,24,8,4 (timed at 4096 lanes, 4 x 50 "
                          "iterations)")
@@ -332,8 +352,8 @@ def main():
                     help="warps a block of the cluster kernel's streamed layout (none named: "
                          + " ".join(STREAM_LAYOUTS) + ")")
     ap.add_argument("--stage-clocks", nargs="*", choices=CLUSTER_TARGETS + tuple(
-                        FOLDED_STAGE_TARGETS),
-                    help="clocks an iteration of each stage of the cluster or the folded "
+                        FOLDED_STAGE_TARGETS + TILED_STAGE_TARGETS),
+                    help="clocks an iteration of each stage of the cluster, folded or tiled "
                          "kernel's loop (none named: " + " ".join(STAGE_TARGETS) + ")")
     ap.add_argument("--timing-check", action="store_true",
                     help="time the package's generic kernel with and without the spin")
@@ -375,8 +395,8 @@ def main():
     if (opt.timing_check or opt.stage_clocks is not None) and not asked:
         return
     if not asked:           # no option: the three shapes of the 8- and 4-robot steps
-        asked = {"fov": ["1,4,160", "1,4,128", "2,2,128"], "conn": ["2,4,64", "1,8,64", "2,4,96"],
-                 "lambda2": ["2,4,64,2,12", "2,4,64,2,9", "2,4,64,7,9"]}
+        asked = {"fov": ["1,4,160", "1,4,128", "2,2,128"], "conn": TILED_DEFAULTS,
+                 "lambda2": TILED_DEFAULTS}
     data, beside, ref = {}, {}, {}
     for name in asked:
         B, shape = SHAPES[name].lanes, SHAPES[name].shape
