@@ -47,6 +47,7 @@ from mpc_cbf_torch.ops.qp.admm import ADMMConfig, solve_batch
 from mpc_cbf_torch.ops.qp.structured import StructuredConfig, StructuredQPOperator
 from mpc_cbf_torch.ops.qp.ipm import HybridIPM, HybridIPMConfig, IPMConfig, StructuredIPM
 from mpc_cbf_torch.controllers.bezier_mpc import BezierMPCOperator
+from mpc_cbf_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -674,8 +675,9 @@ class StructuredIMPC:
         dev = current.pos.device
         dt = current.pos.dtype
 
-        q = ctrl.cost_vector(current, ref_positions, neighbor_blob, neighbor_mask)
-        lb_s, ub_s = ctrl.shared_bounds(current)
+        with profiling.span("assembly"):
+            q = ctrl.cost_vector(current, ref_positions, neighbor_blob, neighbor_mask)
+            lb_s, ub_s = ctrl.shared_bounds(current)
 
         x_now = current.stacked                                  # [B, 2*dim]
         pred0 = x_now[:, None, :].expand(B, H, x_now.shape[-1])
@@ -691,20 +693,22 @@ class StructuredIMPC:
         iterates = []
 
         for it in range(ctrl.impc.impc_iter):
-            if it == 0:
-                pred, active = pred0, active0
-            else:
-                pred = ctrl.predicted_states(coeffs)
-                active = torch.ones(H, dtype=torch.bool, device=dev)
-            A_d, lb_d, ub_d = ctrl.dynamic_rows(current, neighbor_blob, neighbor_mask,
-                                                pred, active)
+            with profiling.span("assembly"):
+                if it == 0:
+                    pred, active = pred0, active0
+                else:
+                    pred = ctrl.predicted_states(coeffs)
+                    active = torch.ones(H, dtype=torch.bool, device=dev)
+                A_d, lb_d, ub_d = ctrl.dynamic_rows(current, neighbor_blob, neighbor_mask,
+                                                    pred, active)
             # iterations > 0 enter warm (previous iterate's primal AND
             # duals) and may run the reduced tail budget
             op_solve = self.op_qp if (it == 0 or self.op_qp_tail is None) \
                 else self.op_qp_tail
             solve = op_solve.solve_polished if getattr(self.cfg, "polish", False) \
                 else op_solve.solve
-            sol = solve(q, lb_s, ub_s, A_d, lb_d, ub_d, x0=x0, ys0=ys0, yd0=yd0)
+            with profiling.span("solve"):
+                sol = solve(q, lb_s, ub_s, A_d, lb_d, ub_d, x0=x0, ys0=ys0, yd0=yd0)
             # back to the caller's dtype: an f64 solve must not leak into an
             # f32 caller (the round-off is far below the 1e-3 certificate)
             coeffs = sol.z[:, : op.n_dec].to(dt)

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from mpc_cbf_torch.types import BIG
+from mpc_cbf_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -222,172 +223,178 @@ class StructuredIPM:
         dt = self.dtype
         B = q.shape[0]
         nz, m_si = self.nz, self.m_si
-        # scalars made on the device (a tensor copied from the host would
-        # wait for the device)
-        inf, zero, one = (torch.full((), v, dtype=dt, device=q.device)
-                          for v in (float("inf"), 0.0, 1.0))
+        with profiling.span("ipm.reduce"):
+            # scalars made on the device (a tensor copied from the host would
+            # wait for the device)
+            inf, zero, one = (torch.full((), v, dtype=dt, device=q.device)
+                              for v in (float("inf"), 0.0, 1.0))
 
-        # particular solution of the equality block, reduced cost
-        b_e = lb_s[:, self.eq_idx]                          # [B, me]
-        x_p = b_e @ self.Epinvb.T                           # [B, n]
-        q_t = q @ self.Zb + x_p @ self.PZb                  # Zᵀq + ZᵀP x_p
-        # per-lane cost normalization (primal-invariant): keeps μ and the
-        # dual residual O(1) even with 5e4-scale slack weights
-        gamma = 1.0 / torch.clamp_min(q_t.abs().amax(dim=1), self._pmax)  # [B]
-        q_t = q_t * gamma[:, None]
+            # particular solution of the equality block, reduced cost
+            b_e = lb_s[:, self.eq_idx]                          # [B, me]
+            x_p = b_e @ self.Epinvb.T                           # [B, n]
+            q_t = q @ self.Zb + x_p @ self.PZb                  # Zᵀq + ZᵀP x_p
+            # per-lane cost normalization (primal-invariant): keeps μ and the
+            # dual residual O(1) even with 5e4-scale slack weights
+            gamma = 1.0 / torch.clamp_min(q_t.abs().amax(dim=1), self._pmax)  # [B]
+            q_t = q_t * gamma[:, None]
 
-        # reduced, row-scaled inequality system G v ∈ [l, u]
-        GdZ = A_d @ self.Zb                                 # [B, m_d, nz]
-        ed = 1.0 / torch.clamp_min(GdZ.abs().amax(dim=2), 1e-12)
-        GdZ = GdZ * ed[:, :, None]
-        GdZ_T = GdZ.transpose(1, 2)                         # [B, nz, m_d]
-        Gxp_s = x_p @ self.Gsb.T                            # [B, m_si] (scaled rows)
-        Gxp_d = (A_d @ x_p[:, :, None])[..., 0] * ed
-        lb_si, ub_si = lb_s[:, self.ineq_idx], ub_s[:, self.ineq_idx]
-        l = torch.cat([lb_si * self.esb - Gxp_s, lb_d * ed - Gxp_d], dim=1)   # [B, m]
-        u = torch.cat([ub_si * self.esb - Gxp_s, ub_d * ed - Gxp_d], dim=1)
-        # side masks: a bound beyond BIG/2 (pre-scaling) is absent
-        has_l = torch.cat([lb_si > -BIG / 2, lb_d > -BIG / 2], dim=1)
-        has_u = torch.cat([ub_si < BIG / 2, ub_d < BIG / 2], dim=1)
-        hl, hu = has_l.to(dt), has_u.to(dt)
-        n_comp = torch.clamp_min(has_l.sum(1) + has_u.sum(1), 1).to(dt)
+            # reduced, row-scaled inequality system G v ∈ [l, u]
+            GdZ = A_d @ self.Zb                                 # [B, m_d, nz]
+            ed = 1.0 / torch.clamp_min(GdZ.abs().amax(dim=2), 1e-12)
+            GdZ = GdZ * ed[:, :, None]
+            GdZ_T = GdZ.transpose(1, 2)                         # [B, nz, m_d]
+            Gxp_s = x_p @ self.Gsb.T                            # [B, m_si] (scaled rows)
+            Gxp_d = (A_d @ x_p[:, :, None])[..., 0] * ed
+            lb_si, ub_si = lb_s[:, self.ineq_idx], ub_s[:, self.ineq_idx]
+            l = torch.cat([lb_si * self.esb - Gxp_s, lb_d * ed - Gxp_d], dim=1)   # [B, m]
+            u = torch.cat([ub_si * self.esb - Gxp_s, ub_d * ed - Gxp_d], dim=1)
+            # side masks: a bound beyond BIG/2 (pre-scaling) is absent
+            has_l = torch.cat([lb_si > -BIG / 2, lb_d > -BIG / 2], dim=1)
+            has_u = torch.cat([ub_si < BIG / 2, ub_d < BIG / 2], dim=1)
+            hl, hu = has_l.to(dt), has_u.to(dt)
+            n_comp = torch.clamp_min(has_l.sum(1) + has_u.sum(1), 1).to(dt)
 
-        def matvec(V):                                      # [B, nz] -> [B, m]
-            return torch.cat([V @ self.GsZb.T, (GdZ @ V[:, :, None])[..., 0]], dim=1)
+            def matvec(V):                                      # [B, nz] -> [B, m]
+                return torch.cat([V @ self.GsZb.T, (GdZ @ V[:, :, None])[..., 0]], dim=1)
 
-        def rmatvec(Y):                                     # [B, m] -> [B, nz]
-            return Y[:, :m_si] @ self.GsZb + (GdZ_T @ Y[:, m_si:, None])[..., 0]
+            def rmatvec(Y):                                     # [B, m] -> [B, nz]
+                return Y[:, :m_si] @ self.GsZb + (GdZ_T @ Y[:, m_si:, None])[..., 0]
 
-        def clip(x, lo, hi):                                # jnp.clip: NaN stays NaN
-            return torch.minimum(torch.maximum(x, lo), hi)
+            def clip(x, lo, hi):                                # jnp.clip: NaN stays NaN
+                return torch.minimum(torch.maximum(x, lo), hi)
 
-        def comp_mean(g_l, zl, g_u, zu):                    # mean complementarity
-            return ((g_l * zl * hl).sum(1) + (g_u * zu * hu).sum(1)) / n_comp
+            def comp_mean(g_l, zl, g_u, zu):                    # mean complementarity
+                return ((g_l * zl * hl).sum(1) + (g_u * zu * hu).sum(1)) / n_comp
 
-        both = has_l & has_u
-        if state0 is not None:
-            # warm start from another dtype's run over the same lanes:
-            # re-interiorize against THIS solve's (l, u) and bound the duals
-            v, t, zl, zu = state0
-            pad = torch.clamp_max(0.25 * torch.where(both, u - l, inf), cfg.warm_pad)
-            t = clip(t, torch.where(has_l, l + pad, -inf), torch.where(has_u, u - pad, inf))
-            # no lower floor on the duals: z = 0 is safe (D-contribution 0)
-            zl = torch.where(has_l, clip(zl, zero, 1e12 * one), zero)
-            zu = torch.where(has_u, clip(zu, zero, 1e12 * one), zero)
-            if cfg.warm_center_width > 0:
-                g_lw = torch.where(has_l, t - l, one)
-                g_uw = torch.where(has_u, u - t, one)
-                mu_w = torch.clamp_min(comp_mean(g_lw, zl, g_uw, zu), cfg.warm_mu_floor)[:, None]
-                w = cfg.warm_center_width
-                zl = torch.where(has_l, clip(zl, mu_w / (w * g_lw), w * mu_w / g_lw), zero)
-                zu = torch.where(has_u, clip(zu, mu_w / (w * g_uw), w * mu_w / g_uw), zero)
-        else:
-            # strictly interior cold start on the central path (g∘z = μ0)
-            v = q.new_zeros((B, nz))
-            Gv = matvec(v)
-            delta = torch.clamp_max(0.25 * torch.where(both, u - l, inf), 1.0)
-            delta = torch.where(torch.isfinite(delta), delta, one)
-            t = clip(Gv, torch.where(has_l, l + delta, -inf), torch.where(has_u, u - delta, inf))
-            mu0 = 1.0
-            g_l0 = torch.where(has_l, t - l, one)
-            g_u0 = torch.where(has_u, u - t, one)
-            zl = torch.where(has_l, torch.clamp(mu0 / g_l0, 1e-10, 1e10), zero)
-            zu = torch.where(has_u, torch.clamp(mu0 / g_u0, 1e-10, 1e10), zero)
+            both = has_l & has_u
+            if state0 is not None:
+                # warm start from another dtype's run over the same lanes:
+                # re-interiorize against THIS solve's (l, u) and bound the duals
+                v, t, zl, zu = state0
+                pad = torch.clamp_max(0.25 * torch.where(both, u - l, inf), cfg.warm_pad)
+                t = clip(t, torch.where(has_l, l + pad, -inf), torch.where(has_u, u - pad, inf))
+                # no lower floor on the duals: z = 0 is safe (D-contribution 0)
+                zl = torch.where(has_l, clip(zl, zero, 1e12 * one), zero)
+                zu = torch.where(has_u, clip(zu, zero, 1e12 * one), zero)
+                if cfg.warm_center_width > 0:
+                    g_lw = torch.where(has_l, t - l, one)
+                    g_uw = torch.where(has_u, u - t, one)
+                    mu_w = torch.clamp_min(comp_mean(g_lw, zl, g_uw, zu),
+                                           cfg.warm_mu_floor)[:, None]
+                    w = cfg.warm_center_width
+                    zl = torch.where(has_l, clip(zl, mu_w / (w * g_lw), w * mu_w / g_lw), zero)
+                    zu = torch.where(has_u, clip(zu, mu_w / (w * g_uw), w * mu_w / g_uw), zero)
+            else:
+                # strictly interior cold start on the central path (g∘z = μ0)
+                v = q.new_zeros((B, nz))
+                Gv = matvec(v)
+                delta = torch.clamp_max(0.25 * torch.where(both, u - l, inf), 1.0)
+                delta = torch.where(torch.isfinite(delta), delta, one)
+                t = clip(Gv, torch.where(has_l, l + delta, -inf),
+                         torch.where(has_u, u - delta, inf))
+                mu0 = 1.0
+                g_l0 = torch.where(has_l, t - l, one)
+                g_u0 = torch.where(has_u, u - t, one)
+                zl = torch.where(has_l, torch.clamp(mu0 / g_l0, 1e-10, 1e10), zero)
+                zu = torch.where(has_u, torch.clamp(mu0 / g_u0, 1e-10, 1e10), zero)
 
-        Pg = self.Ptb[None] * gamma[:, None, None]          # [B, nz, nz]
-        Pg_reg = Pg + cfg.reg * torch.eye(nz, dtype=dt, device=q.device)
-        tiny = torch.finfo(dt).tiny
+            Pg = self.Ptb[None] * gamma[:, None, None]          # [B, nz, nz]
+            Pg_reg = Pg + cfg.reg * torch.eye(nz, dtype=dt, device=q.device)
+            tiny = torch.finfo(dt).tiny
 
-        def ratio(x, dx, present):
-            # largest step keeping x + a dx >= 0 on the present rows
-            r = torch.where(present & (dx < 0), -x / torch.clamp_max(dx, -tiny), inf)
-            return r.amin(dim=1)
+            def ratio(x, dx, present):
+                # largest step keeping x + a dx >= 0 on the present rows
+                r = torch.where(present & (dx < 0), -x / torch.clamp_max(dx, -tiny), inf)
+                return r.amin(dim=1)
 
-        def max_step(g_l, g_u, zl, zu, dt_, dz_l, dz_u):
-            a_p = torch.minimum(ratio(g_l, dt_, has_l), ratio(g_u, -dt_, has_u))
-            a_d = torch.minimum(ratio(zl, dz_l, has_l), ratio(zu, dz_u, has_u))
-            return torch.clamp_max(a_p, 1.0), torch.clamp_max(a_d, 1.0)
+            def max_step(g_l, g_u, zl, zu, dt_, dz_l, dz_u):
+                a_p = torch.minimum(ratio(g_l, dt_, has_l), ratio(g_u, -dt_, has_u))
+                a_d = torch.minimum(ratio(zl, dz_l, has_l), ratio(zu, dz_u, has_u))
+                return torch.clamp_max(a_p, 1.0), torch.clamp_max(a_d, 1.0)
 
-        frozen = torch.zeros(B, dtype=torch.bool, device=q.device)
+            frozen = torch.zeros(B, dtype=torch.bool, device=q.device)
+
         for _ in range(cfg.iters):
+            with profiling.span("ipm.iteration"):
+                Gv = matvec(v)
+                g_l = torch.where(has_l, t - l, one)
+                g_u = torch.where(has_u, u - t, one)
+                r_d = (Pg @ v[:, :, None])[..., 0] + q_t - rmatvec(zl - zu)
+                r_p = Gv - t
+                mu = comp_mean(g_l, zl, g_u, zu)
+                # freeze BEFORE stepping: at the μ floor D spans ~1e15 and
+                # further steps can poison the state
+                frozen = frozen | (mu < cfg.mu_freeze)
+
+                D = torch.where(has_l, zl / g_l, zero) + torch.where(has_u, zu / g_u, zero)
+                # H = Pγ + reg I + Gsᵀ diag(D_s) Gs + Gdᵀ diag(D_d) Gd: the shared
+                # part is one matmul against the per-row outer products, the
+                # per-lane part one bmm (never a [B, m_d, nz, nz] temporary)
+                H = Pg_reg + (D[:, :m_si] @ self.GsZ_outer).view(B, nz, nz) \
+                    + (GdZ_T * D[:, None, m_si:]) @ GdZ
+                L, fact_ok = chol_factor(H)
+
+                def kkt_solve(rc_l, rc_u):
+                    rhs = -r_d - rmatvec(torch.where(has_l, rc_l / g_l, zero)
+                                         - torch.where(has_u, rc_u / g_u, zero) + D * r_p)
+                    dv = chol_solve(L, rhs)
+                    dt_ = matvec(dv) + r_p
+                    dz_l = torch.where(has_l, -(rc_l + zl * dt_) / g_l, zero)
+                    dz_u = torch.where(has_u, -(rc_u - zu * dt_) / g_u, zero)
+                    return dv, dt_, dz_l, dz_u
+
+                # predictor
+                dv_a, dt_a, dzl_a, dzu_a = kkt_solve(g_l * zl, g_u * zu)
+                a_p, a_d = max_step(g_l, g_u, zl, zu, dt_a, dzl_a, dzu_a)
+                a = torch.minimum(a_p, a_d)[:, None]
+                mu_aff = comp_mean(g_l + a * dt_a, zl + a * dzl_a, g_u - a * dt_a, zu + a * dzu_a)
+                sigma = torch.clamp(mu_aff / torch.clamp_min(mu, tiny), 0.0, 1.0) ** 3
+
+                # corrector
+                sm = (sigma * mu)[:, None]
+                dv, dt_, dz_l, dz_u = kkt_solve(g_l * zl - sm + dt_a * dzl_a,
+                                                g_u * zu - sm - dt_a * dzu_a)
+                a_p, a_d = max_step(g_l, g_u, zl, zu, dt_, dz_l, dz_u)
+                # equalize strongly asymmetric steps (keeps μ and r_d falling
+                # together on degenerate lanes)
+                a_eq = torch.minimum(a_p, a_d)
+                asym = a_eq < 0.2 * torch.maximum(a_p, a_d)
+                a_p = torch.where(asym, a_eq, a_p)
+                a_d = torch.where(asym, a_eq, a_d)
+                step_ok = torch.isfinite(torch.cat([dv, dt_, dz_l, dz_u], dim=1)).all(dim=1) \
+                    & fact_ok & ~frozen
+                a_p = torch.where(step_ok, cfg.tau * a_p, zero)[:, None]
+                a_d = torch.where(step_ok, cfg.tau * a_d, zero)[:, None]
+
+                # mask the deltas, not just the step: 0 * NaN = NaN
+                ok = step_ok[:, None]
+                v = v + torch.where(ok, a_p * dv, zero)
+                t = t + torch.where(ok, a_p * dt_, zero)
+                zl = torch.where(has_l, zl + torch.where(ok, a_d * dz_l, zero), zero)
+                zu = torch.where(has_u, zu + torch.where(ok, a_d * dz_u, zero), zero)
+
+        with profiling.span("ipm.final"):
+            # final diagnostics in scaled coordinates
             Gv = matvec(v)
             g_l = torch.where(has_l, t - l, one)
             g_u = torch.where(has_u, u - t, one)
-            r_d = (Pg @ v[:, :, None])[..., 0] + q_t - rmatvec(zl - zu)
-            r_p = Gv - t
             mu = comp_mean(g_l, zl, g_u, zu)
-            # freeze BEFORE stepping: at the μ floor D spans ~1e15 and
-            # further steps can poison the state
-            frozen = frozen | (mu < cfg.mu_freeze)
+            r_d = (Pg @ v[:, :, None])[..., 0] + q_t - rmatvec(zl - zu)
+            bscale = torch.clamp_min(torch.maximum(torch.where(has_l, l.abs(), zero),
+                                                   torch.where(has_u, u.abs(), zero)), 1.0)
+            viol = torch.maximum(torch.where(has_l, l - Gv, zero),
+                                 torch.where(has_u, Gv - u, zero)) / bscale
+            pri = torch.clamp_min(viol, 0.0).amax(dim=1)
+            # r_p (Gv - t) folds into pri via t's interiority; check it too
+            pri = torch.maximum(pri, ((Gv - t).abs() / bscale).amax(dim=1))
+            dual = r_d.abs().amax(dim=1)
+            # a converged lane meets all three bars: complementarity, primal
+            # feasibility and stationarity
+            conv = (mu < cfg.eps_mu * 10) & (pri < cfg.eps_feas * 10) & (dual < cfg.eps_dual)
 
-            D = torch.where(has_l, zl / g_l, zero) + torch.where(has_u, zu / g_u, zero)
-            # H = Pγ + reg I + Gsᵀ diag(D_s) Gs + Gdᵀ diag(D_d) Gd: the shared
-            # part is one matmul against the per-row outer products, the
-            # per-lane part one bmm (never a [B, m_d, nz, nz] temporary)
-            H = Pg_reg + (D[:, :m_si] @ self.GsZ_outer).view(B, nz, nz) \
-                + (GdZ_T * D[:, None, m_si:]) @ GdZ
-            L, fact_ok = chol_factor(H)
-
-            def kkt_solve(rc_l, rc_u):
-                rhs = -r_d - rmatvec(torch.where(has_l, rc_l / g_l, zero)
-                                     - torch.where(has_u, rc_u / g_u, zero) + D * r_p)
-                dv = chol_solve(L, rhs)
-                dt_ = matvec(dv) + r_p
-                dz_l = torch.where(has_l, -(rc_l + zl * dt_) / g_l, zero)
-                dz_u = torch.where(has_u, -(rc_u - zu * dt_) / g_u, zero)
-                return dv, dt_, dz_l, dz_u
-
-            # predictor
-            dv_a, dt_a, dzl_a, dzu_a = kkt_solve(g_l * zl, g_u * zu)
-            a_p, a_d = max_step(g_l, g_u, zl, zu, dt_a, dzl_a, dzu_a)
-            a = torch.minimum(a_p, a_d)[:, None]
-            mu_aff = comp_mean(g_l + a * dt_a, zl + a * dzl_a, g_u - a * dt_a, zu + a * dzu_a)
-            sigma = torch.clamp(mu_aff / torch.clamp_min(mu, tiny), 0.0, 1.0) ** 3
-
-            # corrector
-            sm = (sigma * mu)[:, None]
-            dv, dt_, dz_l, dz_u = kkt_solve(g_l * zl - sm + dt_a * dzl_a,
-                                            g_u * zu - sm - dt_a * dzu_a)
-            a_p, a_d = max_step(g_l, g_u, zl, zu, dt_, dz_l, dz_u)
-            # equalize strongly asymmetric steps (keeps μ and r_d falling
-            # together on degenerate lanes)
-            a_eq = torch.minimum(a_p, a_d)
-            asym = a_eq < 0.2 * torch.maximum(a_p, a_d)
-            a_p = torch.where(asym, a_eq, a_p)
-            a_d = torch.where(asym, a_eq, a_d)
-            step_ok = torch.isfinite(torch.cat([dv, dt_, dz_l, dz_u], dim=1)).all(dim=1) \
-                & fact_ok & ~frozen
-            a_p = torch.where(step_ok, cfg.tau * a_p, zero)[:, None]
-            a_d = torch.where(step_ok, cfg.tau * a_d, zero)[:, None]
-
-            # mask the deltas, not just the step: 0 * NaN = NaN
-            ok = step_ok[:, None]
-            v = v + torch.where(ok, a_p * dv, zero)
-            t = t + torch.where(ok, a_p * dt_, zero)
-            zl = torch.where(has_l, zl + torch.where(ok, a_d * dz_l, zero), zero)
-            zu = torch.where(has_u, zu + torch.where(ok, a_d * dz_u, zero), zero)
-
-        # final diagnostics in scaled coordinates
-        Gv = matvec(v)
-        g_l = torch.where(has_l, t - l, one)
-        g_u = torch.where(has_u, u - t, one)
-        mu = comp_mean(g_l, zl, g_u, zu)
-        r_d = (Pg @ v[:, :, None])[..., 0] + q_t - rmatvec(zl - zu)
-        bscale = torch.clamp_min(torch.maximum(torch.where(has_l, l.abs(), zero),
-                                               torch.where(has_u, u.abs(), zero)), 1.0)
-        viol = torch.maximum(torch.where(has_l, l - Gv, zero),
-                             torch.where(has_u, Gv - u, zero)) / bscale
-        pri = torch.clamp_min(viol, 0.0).amax(dim=1)
-        # r_p (Gv - t) folds into pri via t's interiority; check it too
-        pri = torch.maximum(pri, ((Gv - t).abs() / bscale).amax(dim=1))
-        dual = r_d.abs().amax(dim=1)
-        # a converged lane meets all three bars: complementarity, primal
-        # feasibility and stationarity
-        conv = (mu < cfg.eps_mu * 10) & (pri < cfg.eps_feas * 10) & (dual < cfg.eps_dual)
-
-        x = x_p + v @ self.Zb.T
-        return IPMSolution(z=x, converged=conv, mu=mu, pri_res=pri,
-                           dual_res=dual, state=(v, t, zl, zu))
+            x = x_p + v @ self.Zb.T
+            return IPMSolution(z=x, converged=conv, mu=mu, pri_res=pri,
+                               dual_res=dual, state=(v, t, zl, zu))
 
 
 #: tail profile for the hybrid pipeline: a short f64 run warm-started from

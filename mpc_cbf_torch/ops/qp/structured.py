@@ -51,6 +51,7 @@ from mpc_cbf_torch.types import BIG
 from mpc_cbf_torch.ops.qp.fused_admm import (
     structured_admm_iterations, structured_admm_iterations_ref, takes_wk)
 from mpc_cbf_torch.ops.qp.polish import PolishConfig, make_guards, polish_structured
+from mpc_cbf_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -343,18 +344,19 @@ class StructuredQPOperator:
         cfg = self.cfg
         B = q.shape[0]
         D, E_s = self.D, self.E_s
-        qb, lbs, ubs, Ad, lbd, ubd, e_d, inactive_d = self.scale(
-            q, lb_s, ub_s, A_d, lb_d, ub_d)
+        with profiling.span("admm.scale"):
+            qb, lbs, ubs, Ad, lbd, ubd, e_d, inactive_d = self.scale(
+                q, lb_s, ub_s, A_d, lb_d, ub_d)
 
-        # initial state
-        x = x0 / D if x0 is not None else torch.zeros_like(q)   # [B, n]
-        zs = torch.clamp(x @ self.A_sb.T, lbs, ubs)              # [B, m_s]
-        zd = torch.clamp(torch.einsum("bdj,bj->bd", Ad, x), lbd, ubd)
-        # dual warm start: incoming duals are UNSCALED (y_u = e·ŷ/γ from a
-        # previous solve, possibly under a different dynamic-row
-        # equilibration) — map into the current scaled coordinates.
-        ys = ys0 * self.gamma / E_s if ys0 is not None else torch.zeros_like(zs)
-        yd = yd0 * self.gamma / e_d if yd0 is not None else torch.zeros_like(zd)
+            # initial state
+            x = x0 / D if x0 is not None else torch.zeros_like(q)   # [B, n]
+            zs = torch.clamp(x @ self.A_sb.T, lbs, ubs)              # [B, m_s]
+            zd = torch.clamp(torch.einsum("bdj,bj->bd", Ad, x), lbd, ubd)
+            # dual warm start: incoming duals are UNSCALED (y_u = e·ŷ/γ from a
+            # previous solve, possibly under a different dynamic-row
+            # equilibration) — map into the current scaled coordinates.
+            ys = ys0 * self.gamma / E_s if ys0 is not None else torch.zeros_like(zs)
+            yd = yd0 * self.gamma / e_d if yd0 is not None else torch.zeros_like(zd)
 
         # the raw y carries over unchanged at the phase switch (measured
         # better than rescaling, see mpc_cbf_tpu/ops/qp/structured.py)
@@ -363,34 +365,37 @@ class StructuredQPOperator:
         for (n_it, Ms_inv, rho_s, rho_d_base), M_s in zip(self.phases, self.M_s):
             rho_d = torch.where(inactive_d, torch.full_like(e_d, 1e-12),
                                 torch.full_like(e_d, rho_d_base))
-            W = self.woodbury(Ms_inv, Ad, rho_d) if self.wk_form else \
-                self.folded_c(M_s, Ad, rho_d)
-            x, zs, zd, ys, yd = loop(
-                Ms_inv, self.A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d,
-                W.contiguous(), x.contiguous(), zs.contiguous(), zd.contiguous(),
-                ys.contiguous(), yd.contiguous(),
-                iters=n_it, sigma=cfg.sigma, alpha=cfg.alpha)
+            with profiling.span("admm.operand"):
+                W = self.woodbury(Ms_inv, Ad, rho_d) if self.wk_form else \
+                    self.folded_c(M_s, Ad, rho_d)
+            with profiling.span("admm.kernel"):
+                x, zs, zd, ys, yd = loop(
+                    Ms_inv, self.A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d,
+                    W.contiguous(), x.contiguous(), zs.contiguous(), zd.contiguous(),
+                    ys.contiguous(), yd.contiguous(),
+                    iters=n_it, sigma=cfg.sigma, alpha=cfg.alpha)
 
-        # unscale; primal residual in scaled (row-equilibrated) coordinates,
-        # which is the meaningful relative measure
-        x_out = D * x                                            # [B, n]
-        As_x = x @ self.A_sb.T
-        Ad_x = torch.einsum("bdj,bj->bd", Ad, x)
-        viol_s = torch.abs(As_x - torch.clamp(As_x, lbs, ubs))
-        viol_d = torch.abs(Ad_x - torch.clamp(Ad_x, lbd, ubd))
-        # per-row relative violation: a 10 m/s^2 miss on a tight row must not
-        # be excused by some other row's large magnitude
-        rel_s = torch.amax(viol_s / torch.clamp_min(torch.abs(As_x), 1.0), dim=-1)
-        rel_d = torch.amax(viol_d / torch.clamp_min(torch.abs(Ad_x), 1.0), dim=-1)
-        pri = torch.maximum(torch.amax(viol_s, dim=-1), torch.amax(viol_d, dim=-1))
-        rel = torch.maximum(rel_s, rel_d)
-        return StructuredSolution(
-            z=x_out,
-            pri_res=pri,
-            converged=(rel < cfg.eps_pri) & torch.all(torch.isfinite(x_out), dim=-1),
-            certified=torch.zeros(B, dtype=torch.bool, device=q.device),
-            # duals back to unscaled coordinates (y_u = e·ŷ/γ) so the next
-            # solve can rescale them into ITS equilibration
-            ys=ys * E_s / self.gamma,
-            yd=yd * e_d / self.gamma,
-        )
+        with profiling.span("admm.unscale"):
+            # unscale; primal residual in scaled (row-equilibrated) coordinates,
+            # which is the meaningful relative measure
+            x_out = D * x                                            # [B, n]
+            As_x = x @ self.A_sb.T
+            Ad_x = torch.einsum("bdj,bj->bd", Ad, x)
+            viol_s = torch.abs(As_x - torch.clamp(As_x, lbs, ubs))
+            viol_d = torch.abs(Ad_x - torch.clamp(Ad_x, lbd, ubd))
+            # per-row relative violation: a 10 m/s^2 miss on a tight row must not
+            # be excused by some other row's large magnitude
+            rel_s = torch.amax(viol_s / torch.clamp_min(torch.abs(As_x), 1.0), dim=-1)
+            rel_d = torch.amax(viol_d / torch.clamp_min(torch.abs(Ad_x), 1.0), dim=-1)
+            pri = torch.maximum(torch.amax(viol_s, dim=-1), torch.amax(viol_d, dim=-1))
+            rel = torch.maximum(rel_s, rel_d)
+            return StructuredSolution(
+                z=x_out,
+                pri_res=pri,
+                converged=(rel < cfg.eps_pri) & torch.all(torch.isfinite(x_out), dim=-1),
+                certified=torch.zeros(B, dtype=torch.bool, device=q.device),
+                # duals back to unscaled coordinates (y_u = e·ŷ/γ) so the next
+                # solve can rescale them into ITS equilibration
+                ys=ys * E_s / self.gamma,
+                yd=yd * e_d / self.gamma,
+            )

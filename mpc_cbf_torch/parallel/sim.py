@@ -41,6 +41,7 @@ from mpc_cbf_torch.ops.geometry import convert_to_closest_yaw
 from mpc_cbf_torch.ops.qp.structured import StructuredConfig, StructuredQPOperator
 from mpc_cbf_torch.parallel.distributed import _world, all_gather_cat
 from mpc_cbf_torch.parallel.mesh import Mesh, scenario_sharding
+from mpc_cbf_torch.utils import profiling
 from mpc_cbf_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
@@ -187,33 +188,34 @@ class MultiAgentSim:
         for the next step (None on the IPM family and the dense path) and
         certified [.., A] (all False on the dense path).
         """
-        op = self.controller.op
-        lead = states.pos.shape[:-1]                # (.., A)
+        with profiling.step():
+            op = self.controller.op
+            lead = states.pos.shape[:-1]                # (.., A)
 
-        # goal yaw -> the 2π-equivalent closest to the current yaw, before
-        # the reference is tiled
-        goals = _closest_yaw_goals(states, goals)
-        blobs = self._blobs(states)
-        mask = self._neighbor_mask(states, blobs)
+            # goal yaw -> the 2π-equivalent closest to the current yaw, before
+            # the reference is tiled
+            goals = _closest_yaw_goals(states, goals)
+            blobs = self._blobs(states)
+            mask = self._neighbor_mask(states, blobs)
 
-        flat = lambda x: _flat(x, lead)
-        ref = flat(goals).repeat(1, op.mpc.k_hor)
-        cur = State(pos=flat(states.pos), vel=flat(states.vel))
-        warm = None if warm is None else flat(warm)
-        if self.structured:
-            res = self._structured_impc().optimize_batch(
-                cur, ref, flat(blobs), flat(mask), warm=warm,
-                warm_duals=None if warm_duals is None else tuple(flat(d) for d in warm_duals))
-        else:
-            res = self.controller.optimize(cur, ref, flat(blobs), flat(mask), warm=warm)
-        unflat = lambda x: x.reshape(*lead, *x.shape[1:])
-        out = (unflat(res.coeffs), unflat(res.success), unflat(res.flyable))
-        if not return_duals:
-            return out
-        duals = (unflat(res.ys), unflat(res.yd)) if res.ys is not None else None
-        cert = unflat(res.certified) if res.certified is not None \
-            else torch.zeros_like(out[1])
-        return out + (duals, cert)
+            flat = lambda x: _flat(x, lead)
+            ref = flat(goals).repeat(1, op.mpc.k_hor)
+            cur = State(pos=flat(states.pos), vel=flat(states.vel))
+            warm = None if warm is None else flat(warm)
+            if self.structured:
+                duals0 = None if warm_duals is None else tuple(flat(d) for d in warm_duals)
+                res = self._structured_impc().optimize_batch(
+                    cur, ref, flat(blobs), flat(mask), warm=warm, warm_duals=duals0)
+            else:
+                res = self.controller.optimize(cur, ref, flat(blobs), flat(mask), warm=warm)
+            unflat = lambda x: x.reshape(*lead, *x.shape[1:])
+            out = (unflat(res.coeffs), unflat(res.success), unflat(res.flyable))
+            if not return_duals:
+                return out
+            duals = (unflat(res.ys), unflat(res.yd)) if res.ys is not None else None
+            cert = unflat(res.certified) if res.certified is not None \
+                else torch.zeros_like(out[1])
+            return out + (duals, cert)
 
     def _shift_matrix(self) -> np.ndarray:
         """[n_dec, n_dec] linear map c -> coefficients of the least-squares
@@ -254,26 +256,27 @@ class MultiAgentSim:
         int64, periods already flown on the current curve; has_curve
         [.., A] bool. Returns (State, new_age, new_has_curve).
         """
-        lead = fresh.shape
-        if age is None:
-            age = torch.zeros(lead, dtype=torch.int64, device=fresh.device)
-        if has_curve is None:
-            has_curve = torch.zeros(lead, dtype=torch.bool, device=fresh.device)
-        E0, E1 = self._const("E0", coeffs), self._const("E1", coeffs)
-        n_ages = E0.shape[0]
+        with profiling.span("fly"):
+            lead = fresh.shape
+            if age is None:
+                age = torch.zeros(lead, dtype=torch.int64, device=fresh.device)
+            if has_curve is None:
+                has_curve = torch.zeros(lead, dtype=torch.bool, device=fresh.device)
+            E0, E1 = self._const("E0", coeffs), self._const("E1", coeffs)
+            n_ages = E0.shape[0]
 
-        idx = torch.where(fresh, torch.zeros_like(age), torch.clamp_max(age, n_ages - 1))
-        has_curve_new = has_curve | fresh
-        pos = torch.einsum("...dn,...n->...d", E0[idx], coeffs)
-        vel = torch.einsum("...dn,...n->...d", E1[idx], coeffs)
-        pos = torch.where(has_curve_new[..., None], pos, prev.pos)
-        vel = torch.where(has_curve_new[..., None], vel, torch.zeros_like(vel))
-        st = State(pos=pos, vel=vel)
-        if self.noise_pos_std > 0 or self.noise_vel_std > 0:
-            if generator is None:
-                raise ValueError("state noise is on: fly needs a torch.Generator")
-            st = add_random_noise(generator, st, self.noise_pos_std, self.noise_vel_std)
-        return st, idx + 1, has_curve_new
+            idx = torch.where(fresh, torch.zeros_like(age), torch.clamp_max(age, n_ages - 1))
+            has_curve_new = has_curve | fresh
+            pos = torch.einsum("...dn,...n->...d", E0[idx], coeffs)
+            vel = torch.einsum("...dn,...n->...d", E1[idx], coeffs)
+            pos = torch.where(has_curve_new[..., None], pos, prev.pos)
+            vel = torch.where(has_curve_new[..., None], vel, torch.zeros_like(vel))
+            st = State(pos=pos, vel=vel)
+            if self.noise_pos_std > 0 or self.noise_vel_std > 0:
+                if generator is None:
+                    raise ValueError("state noise is on: fly needs a torch.Generator")
+                st = add_random_noise(generator, st, self.noise_pos_std, self.noise_vel_std)
+            return st, idx + 1, has_curve_new
 
     def rollout(self, init: State, goals: Tensor, num_steps: int,
                 generator: Optional[torch.Generator] = None) -> SimResult:
