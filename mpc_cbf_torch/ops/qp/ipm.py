@@ -19,6 +19,13 @@ Problem family (as ``ops/qp/structured.py``):
   a branch), and a lane whose Newton step is not finite, or whose KKT
   matrix is not positive definite (``cholesky_ex`` info ≠ 0), takes no
   step. Such a lane ends unconverged; nothing falls back to another route.
+- **One CUDA graph per chunk shape.** Every shape in a chunk's solve is
+  static and nothing in it waits for the host, so on the card the first
+  chunk of each shape is captured whole (reduction, iterations, final
+  diagnostics) and every chunk of that shape replays the graph: the same
+  kernels in the same order, without the ~240 host launches an iteration.
+  ``StructuredIPM.graph_counts`` counts captures, replays and eager chunk
+  solves (the CPU's).
 
 Profiles: ``IPMConfig()`` is the certified float64 solver (μ to ~1e-10);
 ``IPM_F32_ENTRY`` runs the same algorithm in float32 with loosened bars
@@ -89,6 +96,11 @@ class IPMSolution(NamedTuple):
     #: final interior state (v, t, zl, zu) in scaled coordinates; feed as
     #: ``state0`` to another StructuredIPM over the same lanes
     state: Tuple[Tensor, Tensor, Tensor, Tensor]
+
+
+def _fields(sol: IPMSolution) -> tuple:
+    """The solution's tensors: its five fields, then its state's four."""
+    return tuple(sol[:5]) + tuple(sol.state)
 
 
 def chol_factor(H: Tensor) -> Tuple[Tensor, Tensor]:
@@ -178,6 +190,14 @@ class StructuredIPM:
         self.eq_idx = torch.as_tensor(np.nonzero(eq)[0], device=self.device)
         self.ineq_idx = torch.as_tensor(np.nonzero(~eq)[0], device=self.device)
         self._pmax = float(max(np.abs(self._Pt).max(), 1e-12))
+        #: on the card, each chunk shape's captured solve, keyed by its
+        #: inputs' shapes (the lanes and m_d; a state0 adds four); None on
+        #: the CPU, which solves every chunk eagerly
+        self._graphs = {} if self.device.type == "cuda" else None
+
+    #: chunk solves in this process: graphs captured ("capture"), chunks
+    #: served by a replay ("replay") and chunks solved eagerly ("eager")
+    graph_counts = {"capture": 0, "replay": 0, "eager": 0}
 
     def _tensor(self, a) -> Tensor:
         return torch.as_tensor(np.array(a), dtype=self.dtype, device=self.device)
@@ -207,16 +227,62 @@ class StructuredIPM:
             state0 = tuple(a.to(self.dtype) for a in state0)
         B = q.shape[0]
         chunk = self.cfg.chunk if 0 < self.cfg.chunk < B else B
-        parts = []
-        for s in range(0, B, chunk):
-            piece = tuple(a[s:s + chunk] for a in args)
-            st = tuple(a[s:s + chunk] for a in state0) if state0 is not None else None
-            parts.append(self._solve(*piece, st))
-        if len(parts) == 1:
-            return parts[0]
-        cat = lambda xs: torch.cat(list(xs), dim=0)
-        return IPMSolution(*(cat(f) for f in zip(*(p[:5] for p in parts))),
-                           state=tuple(cat(f) for f in zip(*(p.state for p in parts))))
+        starts = range(0, B, chunk)
+        pieces = [(tuple(a[s:s + chunk] for a in args),
+                   tuple(a[s:s + chunk] for a in state0) if state0 is not None else None)
+                  for s in starts]
+        if self._graphs is None:
+            StructuredIPM.graph_counts["eager"] += len(pieces)
+            parts = [_fields(self._solve(*piece, st)) for piece, st in pieces]
+            result = parts[0] if len(parts) == 1 else tuple(map(torch.cat, zip(*parts)))
+        else:
+            # each replay overwrites the graph's outputs: copy them into the
+            # chunk's rows of the result before the next one
+            result = None
+            for s, (piece, st) in zip(starts, pieces):
+                out = self._replay(piece, st)
+                if result is None:
+                    result = tuple(a.new_empty((B,) + a.shape[1:]) for a in out)
+                for dst, src in zip(result, out):
+                    dst[s:s + src.shape[0]].copy_(src)
+        return IPMSolution(*result[:5], state=result[5:])
+
+    def _replay(self, piece, state0) -> tuple:
+        """One chunk through the graph of its shape, captured at the shape's
+        first chunk: the graph's own outputs (``_fields`` order), valid until
+        the next replay."""
+        inputs = piece + (state0 or ())
+        key = tuple(a.shape for a in inputs)
+        entry = self._graphs.get(key)
+        if entry is None:
+            with profiling.span("ipm.capture"):
+                entry = self._graphs[key] = self._capture(inputs, state0 is not None)
+        graph, static_in, out = entry
+        with profiling.span("ipm.replay"):
+            for dst, src in zip(static_in, inputs):
+                dst.copy_(src)
+            graph.replay()
+        StructuredIPM.graph_counts["replay"] += 1
+        return out
+
+    def _capture(self, inputs, warm: bool):
+        """(graph, static inputs, static outputs) of one chunk shape. An
+        eager run on a side stream first sets up cuBLAS's and cuSOLVER's
+        handles and workspaces, which a capture may not create; the graph
+        keeps its own memory pool. The static inputs live outside it."""
+        static_in = tuple(a.clone() for a in inputs)
+        run = lambda: self._solve(*static_in[:6], static_in[6:] if warm else None)
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                run()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = _fields(run())
+        StructuredIPM.graph_counts["capture"] += 1
+        return graph, static_in, out
 
     def _solve(self, q, lb_s, ub_s, A_d, lb_d, ub_d, state0) -> IPMSolution:
         cfg = self.cfg
