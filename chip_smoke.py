@@ -31,7 +31,9 @@ sm_90a: an H100). It
    and C streamed from device memory; also a 256-lane chunk for 550
    iterations) and 400 agents (also for 550 iterations), the connectivity
    teams of 128, 256 (rows in registers, also for 550 iterations), 40 and
-   320 robots, two synthetic shapes past
+   320 robots, the 32-robot connectivity lane that run_sim's slack gives
+   (67, 157, 62; also for its longest phase, 150; each cluster row logs the
+   layout it ran in, from launches_by_layout), two synthetic shapes past
    every one-block layout (n = 162 and 165), and by name at the 32-agent fov
    shapes; every kernel but tiled takes the lane's float64 C, which the
    caller factors; a NaN lane that must leave every other lane bitwise
@@ -351,6 +353,7 @@ ALONE = ("cluster_fov256", "tiled_fov", "folded_connectivity", "folded_lambda2")
 #: every kernel must hold (coverage)
 LARGEST_TEAM = 512
 TEAM40_CONN_SHAPES = dict(n=75, m_s=165, m_d=78)
+CONN32_SHAPES = dict(n=67, m_s=157, m_d=62)       # 32-robot connectivity with slack (conn32)
 LAMBDA2_SHAPES = dict(n=36, m_s=126, m_d=14)      # 4-robot connectivity with the λ₂/CLF rows
 BASE_CONFIG = "configs/base_config.json"
 TASK_3R = "configs/baseline/3r/rotate.json"
@@ -383,6 +386,7 @@ RUN_SIM_PHASES = (150, 50, 150, 50)                   # StructuredConfig(), run_
 def reset_counts() -> None:
     KERNEL.launches = 0
     KERNEL.launches_by_variant = dict.fromkeys(fused_admm.VARIANTS, 0)
+    KERNEL.launches_by_layout = {}
 
 
 def bound(B: int, n: int, m_s: int, m_d: int, phases) -> tuple:
@@ -594,6 +598,9 @@ def check_kernel(iters: int = 40) -> dict:
         ("cluster_fov64", "64-agent fov, the step's longest phase", TEAM64_FOV_SHAPES, 16, None,
          max(SWARM_PHASES["fov"])),
         ("cluster", "40-robot connectivity", TEAM40_CONN_SHAPES, 64, None),
+        ("cluster", "32-robot connectivity (conn32)", CONN32_SHAPES, 64, None),
+        ("cluster", "32-robot connectivity (conn32), the step's longest phase", CONN32_SHAPES,
+         64, None, max(RUN_SIM_PHASES)),
         # lanes larger than one SM: the cluster kernel (rows in registers but at 256 fov agents)
         ("cluster_fov96", "96-agent fov", TEAM96_FOV_SHAPES, 4, None),
         ("cluster_fov96", "96-agent fov, the step's longest phase", TEAM96_FOV_SHAPES, 4, None,
@@ -635,6 +642,7 @@ def check_kernel(iters: int = 40) -> dict:
             took = [v for v, c in KERNEL.launches_by_variant.items() if c]
             if took != [row.split("_")[0]]:
                 raise AssertionError(f"{what}: launched {took}, expected the {row} kernel")
+            took += list(KERNEL.launches_by_layout)   # the cluster kernel's layout
         else:                                 # a kernel launched by name
             operand, twin = by_name(variant, shapes)
             args = phase_inputs(B, seed=0, shapes=shapes, operand=operand)
@@ -645,7 +653,7 @@ def check_kernel(iters: int = 40) -> dict:
         err = max_dev(out_k, out_t, what)
         errs[row] = max(errs.get(row, 0.0), err)
         log(f"kernel vs twin, {what} {tuple(shapes.values())} at B={B}, {n_it} iterations "
-            f"({took[0]}): max |dev| {err:.3e} (rtol = atol = {RTOL})")
+            f"({', '.join(took)}): max |dev| {err:.3e} (rtol = atol = {RTOL})")
 
     # a NaN lane leaves every other lane, those of its block too, bitwise untouched
     for what, shapes, bad_lane in (("fov", FOV_SHAPES, 5), ("connectivity", CONN_SHAPES, 10),

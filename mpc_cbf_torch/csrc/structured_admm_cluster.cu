@@ -923,6 +923,16 @@ int structured_admm_cluster_launch(const AdmmArgs& a, cudaStream_t stream) {
                      stream, a, nw);
 }
 
+// The layout structured_admm_cluster_launch runs a shape in: 1 for the rows in registers, 0
+// for the rows streamed, -1 where no layout holds it; *cs blocks a lane, *nw warps a block.
+extern "C" int structured_admm_cluster_layout(int n, int m_s, int m_d, int* cs, int* nw) {
+  const ClusterChoice* c = layout_for(n, m_s, m_d);
+  if (c == nullptr) return -1;
+  *cs = c->cs;
+  *nw = c->registers ? c->nw : stream_warps(n, m_s, m_d, c->cs);
+  return c->registers ? 1 : 0;
+}
+
 #ifdef ADMM_STAGE_CLOCKS
 // The stage clocks into host[0 .. kStageSlots), then zeroes them
 // (scripts/admm_kernel_sweep.py).

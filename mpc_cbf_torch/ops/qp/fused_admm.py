@@ -159,12 +159,28 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.structured_admm_variant.restype = c_int
     lib.structured_admm_error_string.argtypes = [c_int]
     lib.structured_admm_error_string.restype = ctypes.c_char_p
+    lib.structured_admm_cluster_layout.argtypes = [c_int] * 3 + [ctypes.POINTER(c_int)] * 2
+    lib.structured_admm_cluster_layout.restype = c_int
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     return bind(_build.load())
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_layout(n: int, m_s: int, m_d: int) -> str:
+    """The layout the ``cluster`` kernel runs a shape in, as
+    ``"registers cs=<blocks a lane> nw=<warps a block>"`` (the rows of
+    [A_s; A_d] in the blocks' registers) or ``"streamed cs=.. nw=.."`` (from
+    device memory once an iteration); ``kLayouts`` of
+    csrc/structured_admm_cluster.cu picks it from the shape alone."""
+    cs, nw = ctypes.c_int(), ctypes.c_int()
+    code = _lib().structured_admm_cluster_layout(n, m_s, m_d, ctypes.byref(cs), ctypes.byref(nw))
+    if code < 0:
+        raise ValueError(f"no cluster layout holds the shape (n={n}, m_s={m_s}, m_d={m_d})")
+    return f"{'registers' if code else 'streamed'} cs={cs.value} nw={nw.value}"
 
 
 def launch_variant(lib: ctypes.CDLL, variant: str, args, *, iters: int, sigma: float,
@@ -205,7 +221,8 @@ def structured_admm_iterations(
     """Run one rho phase of the loop: the CUDA kernel of the shape for CUDA
     float32 tensors (C in float64), the plain twin for CPU tensors. Shapes
     in the module docstring. ``structured_admm_iterations.launches`` counts
-    kernel launches and ``.launches_by_variant`` counts them per kernel."""
+    kernel launches, ``.launches_by_variant`` counts them per kernel and
+    ``.launches_by_layout`` the ``cluster`` ones per ``cluster_layout``."""
     args = (Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d, W,
             x0, zs0, zd0, ys0, yd0)
     if qb.device.type == "cpu":
@@ -246,6 +263,10 @@ def structured_admm_iterations(
     outs = launch_variant(lib, variant, args, iters=iters, sigma=sigma, alpha=alpha)
     structured_admm_iterations.launches += 1
     structured_admm_iterations.launches_by_variant[variant] += 1
+    if variant == "cluster":
+        layout = cluster_layout(n, m_s, m_d)
+        by_layout = structured_admm_iterations.launches_by_layout
+        by_layout[layout] = by_layout.get(layout, 0) + 1
     return outs
 
 
@@ -257,6 +278,7 @@ def fov_team_shape(A: int) -> Tuple[int, int, int]:
 
 structured_admm_iterations.launches = 0
 structured_admm_iterations.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+structured_admm_iterations.launches_by_layout = {}
 
 
 def random_phase_inputs(rng: np.random.Generator, B: int, n: int, m_s: int, m_d: int,

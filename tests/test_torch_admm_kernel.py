@@ -62,6 +62,9 @@ TEAM85_FOV, TEAM96_FOV = fused_admm.fov_team_shape(85), fused_admm.fov_team_shap
 TEAM128_FOV, TEAM256_FOV = fused_admm.fov_team_shape(128), fused_admm.fov_team_shape(256)
 TEAM400_FOV = fused_admm.fov_team_shape(400)
 TEAM128_CONN, TEAM256_CONN, TEAM320_CONN = (163, 253, 254), (291, 381, 510), (355, 445, 638)
+# the 32-robot connectivity team of build_sim with slack on (the benchmark's
+# conn32): past generic's n = 64 and no folded instance, so cluster's
+CONN32 = (67, 157, 62)
 KW = dict(iters=40, sigma=1e-6, alpha=1.6)
 
 
@@ -402,6 +405,7 @@ def _need_gpu():
     (TEAM40_FOV, 16, "cluster"),     # past generic's registers: a lane on 2 or 4 SMs, in registers
     (TEAM64_FOV, 8, "cluster"),
     (TEAM40_CONN, 16, "cluster"),
+    (CONN32, 64, "cluster"),
     ((162, 2, 2), 3, "cluster"),     # n above every generic layout
     ((165, 4, 4), 3, "cluster"),
     (TEAM85_FOV, 3, "cluster"),      # the first fov team past FromMemory: rows in registers
@@ -429,6 +433,25 @@ def test_kernel_matches_twin_on_gpu(shape, B, took):
     assert {v: after[v] - before[v] for v in VARIANTS} == {v: int(v == took) for v in VARIANTS}
     for a, b in zip(out_k, out_t):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,B,layout", [(CONN32, 64, "registers cs=2 nw=16"),
+                                            (TEAM256_FOV, 2, "streamed cs=8 nw=8")])
+def test_cluster_launches_count_their_layout_on_gpu(shape, B, layout):
+    """Each launch of the cluster kernel counts once under the layout it ran
+    in (``launches_by_layout``, read from the kernel's own ``layout_for``):
+    the 32-robot connectivity lane with its rows in the registers of 2 blocks
+    of 16 warps, the 256-agent fov lane streamed through 8 blocks of 8 warps."""
+    _need_gpu()
+    arrays = [torch.from_numpy(a).cuda() for a in _inputs(B, seed=26, shape=shape)]
+    before = dict(structured_admm_iterations.launches_by_layout)
+    structured_admm_iterations(*arrays, **dict(KW, iters=10))
+    torch.cuda.synchronize()
+    after = structured_admm_iterations.launches_by_layout
+    assert {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)} == \
+        {layout: 1}
+    assert fused_admm.cluster_layout(*shape) == layout
 
 
 @pytest.mark.cuda
