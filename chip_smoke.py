@@ -32,7 +32,8 @@ sm_90a: an H100). It
    iterations) and 400 agents (also for 550 iterations), the connectivity
    teams of 128, 256 (rows in registers, also for 550 iterations), 40 and
    320 robots, the 32-robot connectivity lane that run_sim's slack gives
-   (67, 157, 62; also for its longest phase, 150; each cluster row logs the
+   (67, 157, 62, the layout on one SM: one lane a block of 8 warps, two
+   blocks an SM; also for its longest phase, 150; each cluster row logs the
    layout it ran in, from launches_by_layout), two synthetic shapes past
    every one-block layout (n = 162 and 165), and by name at the 32-agent fov
    shapes; every kernel but tiled takes the lane's float64 C, which the
@@ -368,9 +369,10 @@ SOURCES = {"tiled": "mpc_cbf_torch/csrc/structured_admm_tiled.cu",
 #: barriers of one iteration as the sources write them (generic:
 #: structured_admm_generic.cu; folded: structured_admm_folded.cu, its three
 #: waits, two of them of some warps only; cluster:
-#: structured_admm_cluster.cu's register layout, two block-wide and two waits
-#: for the other blocks' pushes; its streamed layout has two block-wide and
-#: two cluster-wide): a count read from the code, printed beside the measured
+#: structured_admm_cluster.cu's register layout on a cluster, two block-wide
+#: and two waits for the other blocks' pushes, the fov teams it times; on one
+#: SM three block-wide; its streamed layout has two block-wide and two
+#: cluster-wide): a count read from the code, printed beside the measured
 #: times in the log only
 BARRIERS = {"generic": 3, "folded": 3, "cluster": 4}
 # the card's peaks, NVIDIA's H100 SXM data sheet at 700 W: float32 outside the
@@ -598,9 +600,9 @@ def check_kernel(iters: int = 40) -> dict:
         ("cluster_fov64", "64-agent fov, the step's longest phase", TEAM64_FOV_SHAPES, 16, None,
          max(SWARM_PHASES["fov"])),
         ("cluster", "40-robot connectivity", TEAM40_CONN_SHAPES, 64, None),
-        ("cluster", "32-robot connectivity (conn32)", CONN32_SHAPES, 64, None),
-        ("cluster", "32-robot connectivity (conn32), the step's longest phase", CONN32_SHAPES,
-         64, None, max(RUN_SIM_PHASES)),
+        ("cluster", "32-robot connectivity (conn32), on one SM", CONN32_SHAPES, 64, None),
+        ("cluster", "32-robot connectivity (conn32), on one SM, the step's longest phase",
+         CONN32_SHAPES, 64, None, max(RUN_SIM_PHASES)),
         # lanes larger than one SM: the cluster kernel (rows in registers but at 256 fov agents)
         ("cluster_fov96", "96-agent fov", TEAM96_FOV_SHAPES, 4, None),
         ("cluster_fov96", "96-agent fov, the step's longest phase", TEAM96_FOV_SHAPES, 4, None,

@@ -38,9 +38,16 @@
 //   generic   structured_admm_generic.cu: shapes known only at run time, one
 //             lane a block with [A_s; A_d] in registers (the sweep's and
 //             run_sim's connectivity teams, the 24-agent fov team).
-//   cluster   structured_admm_cluster.cu: one lane a thread-block cluster, for
-//             every larger lane; the rows in the blocks' registers where they
-//             fit, else streamed from device memory once an iteration.
+//   cluster   structured_admm_cluster.cu: every larger lane, in registers on
+//             one SM where the lane's rows fit an SM's registers with two
+//             lanes on it (one lane a block of 8 warps, no cluster, both
+//             exchanges in the block's shared memory: the connectivity teams
+//             of 30-33 robots, conn32's (67, 157, 62) among them; at conn32 an
+//             iteration on half an SM a lane was latency that nothing hid,
+//             ~1.86 us, and two lanes an SM take a step's launches in 144.6
+//             ms against 369.2), else one lane a thread-block cluster: the
+//             rows in the blocks' registers where they fit, else streamed
+//             from device memory once an iteration.
 // A shape none of them holds (a lane whose vectors and row state exceed the
 // shared memory of a cluster: fov teams past about 1 000 agents) has no
 // kernel: the wrapper raises.

@@ -3,8 +3,9 @@
 // shape, several lanes a block, the Woodbury form; structured_admm_folded.cu:
 // one lane a block, the stacked matrix in registers, the lane's float64 C;
 // structured_admm_generic.cu: the C form for shapes known only at run time,
-// one lane a block; structured_admm_cluster.cu: the C form with one lane a
-// thread-block cluster, for lanes larger than an SM).
+// one lane a block; structured_admm_cluster.cu: the C form for the larger
+// lanes, one lane a thread-block cluster, or one lane a block with two lanes
+// an SM where its rows fit).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,12 +1,15 @@
-// Structured-ADMM iteration loop for lanes too large for one SM, for Hopper
-// (sm_90a): one lane runs on a thread-block cluster of cs = 2, 4 or 8 blocks
-// on neighbouring SMs, which write into each other's shared memory
-// (distributed shared memory). The kernel of every shape that no layout of
-// structured_admm_tiled.cu, _folded.cu or _generic.cu holds: the fov teams
-// of benchmarks/swarm.py from 30 agents ((35 + A, 119 + A, 12 (A - 1)):
-// (163, 247, 1524) at 128 agents, (291, 375, 3060) at 256, (435, 519, 4788)
-// at 400; the 32-agent team is folded's) and the connectivity teams of
-// apps/sweep.py and run_sim from 30 robots ((35 + R, 125 + R, 2R - 2)).
+// Structured-ADMM iteration loop for the lanes past the one-block kernels, for
+// Hopper (sm_90a): one lane runs on a thread-block cluster of cs = 2, 4 or 8
+// blocks on neighbouring SMs, which write into each other's shared memory
+// (distributed shared memory), or, where its rows fit the registers of one
+// SM with two lanes on it, on one block of its own (cs = 1, no cluster). The
+// kernel of every shape that no layout of structured_admm_tiled.cu,
+// _folded.cu or _generic.cu holds: the fov teams of benchmarks/swarm.py from
+// 30 agents ((35 + A, 119 + A, 12 (A - 1)): (163, 247, 1524) at 128 agents,
+// (291, 375, 3060) at 256, (435, 519, 4788) at 400; the 32-agent team is
+// folded's) and the connectivity teams of apps/sweep.py and run_sim from 30
+// robots ((35 + R, 125 + R, 2R - 2); those of 30-33 robots, conn32's (67,
+// 157, 62) among them, on one SM).
 //
 // Replaces the Pallas TPU kernel mpc_cbf_tpu/ops/qp/pallas_admm.py::_kernel
 // (launched by structured_admm_iterations, pl.pallas_call at :170); what
@@ -31,6 +34,16 @@
 // control step at 3.35 TB/s, against the 0.12 s of its float32 arithmetic.
 // There the bytes bound the loop.
 //
+// A lane that fits one SM is the other case. conn32's (67, 157, 62) lane is
+// 219 x 67 float32 rows (28 rows x 3 column slots = 84 floats a thread of 8
+// warps) and a float64 C of 67 x 72 x 8 B = 38.6 KB (47.7 KB of shared memory
+// a block, RegLayout). On the 2 blocks of 16 warps of the cluster layout each
+// SM held half a lane: 66 lanes on 132 SMs, 496 waves for 32768 lanes, each
+// warp's strip 7 of its 20 rows, and an iteration ~1.86 us (3.3-3.7 k clocks)
+// of latency that nothing hid: about 21 row products a thread, two block
+// barriers and two pushes across SMs with their waits (PERF.md). Fixed costs
+// held it, not its rows.
+//
 // What this design does about it:
 // 1. xt = C RHS in float64 from the lane's C: block k of the cluster owns the
 //    rows [k n / cs, (k + 1) n / cs) of C, kP threads a row. C RHS
@@ -48,7 +61,7 @@
 //    another block's memory. At 128 agents the two waits take 1.0 k clocks an
 //    iteration where the replaced layout's two cluster barriers took 2.4-2.5 k
 //    (PERF.md).
-// 3. Where the rows live. Two layouts, kLayouts below:
+// 3. Where the rows live. Three layouts, kLayouts below:
 //    (a) registers (fov teams to 149 agents, connectivity teams to 285
 //        robots): warp w of a block holds a strip of the block's rows, lane l
 //        columns l, l + 32, ... of each (RegShape: at most RW rows a strip, TC
@@ -89,10 +102,25 @@
 //        and two or more blocks share an SM (kStreamWarps). A_s is the same
 //        for every lane: it is read from L2. This layout still reads the
 //        other blocks' partial column sums (form_rhs).
-//    The first layout of kLayouts that holds a shape runs it: registers with
-//    2, 4, then 8 blocks (16, then 8 warps), then streamed with 8 (the
-//    portable maximum of a cluster; 16 blocks measured slower, PERF.md).
-// One lane a cluster: a NaN lane cannot reach another lane.
+//    (c) registers on one SM (cs = 1; connectivity teams of 30-33 robots,
+//        RegShape<8, 28, 3, true>): one lane a block of 8 warps, launch
+//        bounds of two blocks an SM (RW x TC = 84 floats of rows within 128
+//        registers; 2 x 47.7 KB of shared memory at conn32), so an SM holds
+//        two lanes (264 resident, 124 waves at 32768 lanes) whose waits hide
+//        each other. The rows stay in the warps' registers as in (a); C is
+//        whole in the block's shared memory, and both exchanges stay in it:
+//        the warps' partial column sums meet into RHS behind one block
+//        barrier, xt = C RHS (2 threads a row, one pass) is written straight
+//        into xt behind another, three block barriers an iteration and no
+//        push, mbarrier or cluster barrier (compiled out: ONE_SM). conn32's
+//        four launches of a step took 144.6 ms against 369.2 ms on 2 blocks
+//        of 16 warps; 16 warps a block (one lane an SM) 196.8 ms and two
+//        lanes a block of 16 warps 173.1 ms (PERF.md).
+//    The first layout of kLayouts that holds a shape runs it: one SM, then
+//    registers with 2, 4, then 8 blocks (16, then 8 warps), then streamed
+//    with 8 (the portable maximum of a cluster; 16 blocks measured slower,
+//    PERF.md).
+// One lane a cluster or a block: a NaN lane cannot reach another lane.
 // scripts/admm_kernel_sweep.py --cluster times other kLayouts lines, and
 // --stage-clocks the stages of an iteration (the STAGE markers).
 //
@@ -128,11 +156,16 @@ constexpr unsigned kFull = 0xffffffffu;
 // at most one row).
 __host__ __device__ inline int part_start(int count, int cs, int k) { return k * count / cs; }
 
-constexpr int kP = 8;                          // threads a row of C in xt = C RHS
+// Threads a row of C in xt = C RHS: kP where a lane spans a cluster, kP1 where it has one SM
+// (cs = 1): there a lane's n <= 96 rows take one pass of its 256 threads (conn32's four
+// launches of a step: 142 ms with 2, 160 with 8 threads a row in three passes, 176 with 1;
+// PERF.md).
+constexpr int kP = 8, kP1 = 2;
+__host__ __device__ constexpr int row_threads(int cs) { return cs == 1 ? kP1 : kP; }
 
-// Smallest row stride >= x (doubles) that is kP mod 2 kP: the kP threads of
-// a row and the 16 / kP rows of a half-warp then load from 32 distinct banks.
-__host__ __device__ constexpr int pad_c(int x) { return round_up(x + kP, 2 * kP) - kP; }
+// Smallest row stride >= x (doubles) that is p mod 2 p: the p threads of a
+// row and the 16 / p rows of a half-warp then load from 32 distinct banks.
+__host__ __device__ constexpr int pad_c(int x, int p) { return round_up(x + p, 2 * p) - p; }
 
 // Shared memory of one block of the register layout, byte offsets: the two
 // exchanges' mbarriers, C's rows, the loop's vectors, the pushed partial column
@@ -146,7 +179,7 @@ struct RegLayout {
     crows = cdiv(n, cs);                   // rows of C a block, at most
     rw = cdiv(rows, nw);                   // rows a warp's strip, at most
     nv = round_up(n, 4);
-    ldc = pad_c(n);
+    ldc = pad_c(n, row_threads(cs));
     rwp = round_up(rw, 4);
     rv4 = round_up(rows, 4);
     bar = 0;                                                      // 2 mbarriers
@@ -161,15 +194,23 @@ struct RegLayout {
     st = rv + size_t(4) * nw * rwp;                               // z, y, lo, hi, rho [5, rv4]
     bytes = align16(st + size_t(4) * 5 * rv4);
   }
-  __host__ __device__ bool fits() const { return bytes <= kMaxSharedBytes; }
 };
 
-// One instance of the register layout: NW warps a block, at most RW rows a
-// strip, TC column slots of 32 a lane (n <= 32 TC). RW x TC floats of rows a
-// thread, within the 65 536 / (32 NW) registers the launch bounds give it.
-template <int NW_, int RW_, int TC_>
+// Blocks an SM that the launch bounds of an instance of the register layout ask for: one where
+// a lane spans a cluster (a block's rows fill its SM's registers), else as many as make 16 warps
+// an SM, so that each thread keeps 128 registers.
+__host__ __device__ constexpr int reg_min_blocks(int nw, bool one_sm) {
+  return one_sm ? imax(1, 16 / nw) : 1;
+}
+
+// One instance of the register layout: NW warps a block, at most RW rows a strip, TC column
+// slots of 32 a lane (n <= 32 TC); ONE_SM: one lane a block, no cluster, else a lane spans a
+// cluster of blocks. RW x TC floats of rows a thread, within the 65 536 / (32 NW
+// reg_min_blocks) registers the launch bounds give it.
+template <int NW_, int RW_, int TC_, bool ONE_SM_ = false>
 struct RegShape {
   static constexpr int NW = NW_, RW = RW_, TC = TC_;
+  static constexpr bool ONE_SM = ONE_SM_;
   static_assert(RW % 2 == 0 && RW >= 4 && TC >= 1 && (NW == 8 || NW == 16), "layout");
 };
 template <class... S>
@@ -397,20 +438,37 @@ __device__ __forceinline__ void strip_rows(const float (&A)[RW][TC], const float
   }
 }
 
-// One lane a cluster of cs blocks (grid: B cs blocks, cluster: cs); the
-// block's rows of [A_s; A_d] in its warps' registers, its rows of C in shared
-// memory (see 3 (a) above).
-template <int NW, int RW, int TC>
-__global__ void __launch_bounds__(32 * NW, 1) reg_kernel(const AdmmArgs a) {
-  constexpr int T = 32 * NW;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int cs = static_cast<int>(cluster.num_blocks());
-  const int k = static_cast<int>(cluster.block_rank());
-  const int lane = blockIdx.x / cs;                 // grid = B cs: every cluster is a lane
+// The block's partial column sum j: its even and its odd warps' partials pw [NW, nv] each in
+// order, then the two.
+template <int NW>
+__device__ __forceinline__ float meet_warps(const float* pw, int nv, int j) {
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int v = 0; v < NW; v += 2) {
+    s0 += pw[v * nv + j];
+    s1 += pw[(v + 1) * nv + j];
+  }
+  return s0 + s1;
+}
+
+// One lane a cluster of cs blocks (grid: B cs blocks, cluster: cs), or with ONE_SM one lane a
+// block and no cluster (grid: B blocks), both exchanges in the block's shared memory; the
+// block's rows of [A_s; A_d] in its warps' registers, its rows of C in shared memory (see 3 (a)
+// and (c) above).
+template <int NW, int RW, int TC, bool ONE_SM>
+__global__ void __launch_bounds__(32 * NW, reg_min_blocks(NW, ONE_SM))
+    reg_kernel(const AdmmArgs a) {
+  constexpr int T = 32 * NW, P = ONE_SM ? kP1 : kP;       // P: threads a row of C
+  const int tid = threadIdx.x, w = tid / 32, l = tid % 32;
+  int cs = 1, k = 0, lane = blockIdx.x;
+  if constexpr (!ONE_SM) {
+    cs = static_cast<int>(cg::this_cluster().num_blocks());
+    k = static_cast<int>(cg::this_cluster().block_rank());
+    lane = blockIdx.x / cs;                         // grid = B cs: every cluster is a lane
+  }
   const int n = a.n, m_s = a.m_s;
   const RegLayout L(n, m_s, a.m_d, cs, NW);
   const int nv = L.nv, ldc = L.ldc, rv4 = L.rv4;
-  const int tid = threadIdx.x, w = tid / 32, l = tid % 32;
   const int rb = part_start(L.m, cs, k), rows = part_start(L.m, cs, k + 1) - rb;   // its rows
   const int cb = part_start(n, cs, k), nc = part_start(n, cs, k + 1) - cb;         // its rows of C
   const int sb = part_start(rows, NW, w), cnt = part_start(rows, NW, w + 1) - sb;  // the strip
@@ -430,10 +488,12 @@ __global__ void __launch_bounds__(32 * NW, 1) reg_kernel(const AdmmArgs a) {
   const float *zs = st, *ys = st + rv4, *rhos = st + 4 * rv4;
   const float* Ad = a.Ad + size_t(lane) * a.m_d * n;         // [m_d, n]
 
-  if (tid == 0) {
-    bar_init(&bars[0]);
-    bar_init(&bars[1]);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  if constexpr (!ONE_SM) {
+    if (tid == 0) {
+      bar_init(&bars[0]);
+      bar_init(&bars[1]);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
   }
   load_c_rows(Cm, ldc, a.C + size_t(lane) * n * n, cb, nc, n);
   load_state(a, lane, rb, rows, rv4, x, q, st);
@@ -455,14 +515,14 @@ __global__ void __launch_bounds__(32 * NW, 1) reg_kernel(const AdmmArgs a) {
     rs[j] = j < cnt ? rhos[sb + j] * zs[sb + j] - ys[sb + j] : 0.f;
   __syncwarp();
   // every block of the lane runs, with its mbarriers set up, before the first push
-  cluster.sync();
+  if constexpr (!ONE_SM) cg::this_cluster().sync();
   // the bytes a phase brings: every block's partial (nv floats), and xt
-  const unsigned bytes_partials = 4u * cs * nv, bytes_xt = 4u * n;
+  [[maybe_unused]] const unsigned bytes_partials = 4u * cs * nv, bytes_xt = 4u * n;
 
   const float alpha = a.alpha, beta = 1.0f - a.alpha;
   STAGE_START;
   for (int it = 0; it < a.iters; ++it) {
-    const unsigned parity = it & 1;
+    [[maybe_unused]] const unsigned parity = it & 1;
     // (a) the strip's column sums of [A_s; A_d]'r: lane l over its columns, r broadcast
     {
       float s[TC];
@@ -499,55 +559,68 @@ __global__ void __launch_bounds__(32 * NW, 1) reg_kernel(const AdmmArgs a) {
       }
     }
     STAGE(0);
-    if (tid == 0) bar_expect(&bars[0], bytes_partials);
-    __syncthreads();
-    // (b) the block's partial: its even and its odd warps each in order, then the two,
-    // pushed into row k of every block's buf
-    for (int j = tid; j < nv; j += T) {
-      float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-      for (int v = 0; v < NW; v += 2) {
-        s0 += pw[v * nv + j];
-        s1 += pw[(v + 1) * nv + j];
+    if constexpr (ONE_SM) {
+      __syncthreads();
+      STAGE(1);
+      // (b, c) RHS = sigma x - q + the lane's column sums (thread j keeps x_j)
+      for (int j = tid; j < n; j += T)
+        rhs[j] = static_cast<double>((a.sigma * x[j] - q[j]) + meet_warps<NW>(pw, nv, j));
+      STAGE(2);
+      __syncthreads();
+      STAGE(3);
+    } else {
+      if (tid == 0) bar_expect(&bars[0], bytes_partials);
+      __syncthreads();
+      // (b) the block's partial, pushed into row k of every block's buf
+      for (int j = tid; j < nv; j += T) {
+        const float s = meet_warps<NW>(pw, nv, j);
+        for (int b = 0; b < cs; ++b)
+          push(cluster_addr(buf + k * nv + j, b), s, cluster_addr(&bars[0], b));
       }
-      const float s = s0 + s1;
-      for (int b = 0; b < cs; ++b)
-        push(cluster_addr(buf + k * nv + j, b), s, cluster_addr(&bars[0], b));
+      STAGE(1);
+      bar_wait(&bars[0], parity);                  // every block's partial is here
+      STAGE(2);
+      // (c) RHS = sigma x - q + the blocks' partials in rank order (thread j keeps x_j)
+      for (int j = tid; j < n; j += T) {
+        float s = 0.f;
+        for (int b = 0; b < cs; ++b) s += buf[b * nv + j];
+        rhs[j] = static_cast<double>((a.sigma * x[j] - q[j]) + s);
+      }
+      if (tid == 0) bar_expect(&bars[1], bytes_xt);
+      __syncthreads();
+      STAGE(3);
     }
-    STAGE(1);
-    bar_wait(&bars[0], parity);                    // every block's partial is here
-    STAGE(2);
-    // (c) RHS = sigma x - q + the blocks' partials in rank order (thread j keeps x_j)
-    for (int j = tid; j < n; j += T) {
-      float s = 0.f;
-      for (int b = 0; b < cs; ++b) s += buf[b * nv + j];
-      rhs[j] = static_cast<double>((a.sigma * x[j] - q[j]) + s);
-    }
-    if (tid == 0) bar_expect(&bars[1], bytes_xt);
-    __syncthreads();
-    STAGE(3);
-    // (d) the block's rows of xt = C RHS, kP threads a row (a warp past the rows skips);
-    // thread p of a row pushes its value into the xt of blocks p, p + kP, ...
-    for (int r0 = 0; r0 < nc; r0 += T / kP) {
-      if (r0 + (tid & ~31) / kP >= nc) continue;
-      const int row = r0 + tid / kP, p = tid % kP;
+    // (d) the block's rows of xt = C RHS, P threads a row (a warp past the rows skips); on one
+    // SM the row's first thread writes it, else thread p of a row pushes it into the xt of
+    // blocks p, p + P, ...
+    for (int r0 = 0; r0 < nc; r0 += T / P) {
+      if (r0 + (tid & ~31) / P >= nc) continue;
+      const int row = r0 + tid / P, p = tid % P;
       const double* crow = Cm + size_t(imin(row, nc - 1)) * ldc;
       double s0 = 0.0, s1 = 0.0;
       int c = p;
-      for (; c + kP < n; c += 2 * kP) {
+      for (; c + P < n; c += 2 * P) {
         s0 = fma(crow[c], rhs[c], s0);
-        s1 = fma(crow[c + kP], rhs[c + kP], s1);
+        s1 = fma(crow[c + P], rhs[c + P], s1);
       }
       if (c < n) s0 = fma(crow[c], rhs[c], s0);
       double s = s0 + s1;
 #pragma unroll
-      for (int o = 1; o < kP; o <<= 1) s += __shfl_xor_sync(kFull, s, o);
-      if (row < nc)
-        for (int b = p; b < cs; b += kP)
-          push(cluster_addr(xtf + cb + row, b), static_cast<float>(s), cluster_addr(&bars[1], b));
+      for (int o = 1; o < P; o <<= 1) s += __shfl_xor_sync(kFull, s, o);
+      if (row < nc) {
+        if constexpr (ONE_SM) {
+          if (p == 0) xtf[row] = static_cast<float>(s);
+        } else {
+          for (int b = p; b < cs; b += P)
+            push(cluster_addr(xtf + cb + row, b), static_cast<float>(s), cluster_addr(&bars[1], b));
+        }
+      }
     }
     STAGE(4);
-    bar_wait(&bars[1], parity);                    // every block's rows of xt are here
+    if constexpr (ONE_SM)
+      __syncthreads();                             // xt is whole
+    else
+      bar_wait(&bars[1], parity);                  // every block's rows of xt are here
     STAGE(5);
     // (e) relax x; the strip's row sums [A_s; A_d] xt from the registers, and their updates
     for (int j = tid; j < n; j += T) x[j] = alpha * xtf[j] + beta * x[j];
@@ -806,7 +879,7 @@ __global__ void __launch_bounds__(256, kStreamMinBlocks) stream_kernel(const Adm
 // ---- layouts and launch ---------------------------------------------------------------------
 
 
-// Launches kernel on a grid of `grid` blocks in clusters of cs.
+// Launches kernel on a grid of `grid` blocks in clusters of cs (cs = 1: no cluster).
 template <class Kernel, class... Args>
 int launch_grid(Kernel kernel, unsigned grid, int cs, int threads, size_t bytes,
                 cudaStream_t stream, Args... args) {
@@ -826,7 +899,7 @@ int launch_grid(Kernel kernel, unsigned grid, int cs, int threads, size_t bytes,
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = stream;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = cs > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
@@ -834,39 +907,41 @@ int launch_grid(Kernel kernel, unsigned grid, int cs, int threads, size_t bytes,
 
 // The register layout's instances, tried in this order for the warps a layout names: the first
 // whose strips and column slots hold a shape runs it. RW x TC stays within the registers that
-// ptxas gives a thread without spilling (-Xptxas -v: 128 at 16 warps, 255 at 8).
-using RegShapes = ShapeList<RegShape<16, 20, 3>, RegShape<16, 28, 3>, RegShape<16, 20, 4>,
-                            RegShape<16, 16, 5>, RegShape<16, 14, 6>, RegShape<16, 12, 7>,
-                            RegShape<16, 10, 8>, RegShape<16, 8, 10>, RegShape<8, 32, 6>>;
+// ptxas gives a thread without spilling (-Xptxas -v: 128 at 16 warps an SM, 255 at 8).
+using RegShapes = ShapeList<RegShape<8, 28, 3, true>, RegShape<16, 20, 3>, RegShape<16, 28, 3>,
+                            RegShape<16, 20, 4>, RegShape<16, 16, 5>, RegShape<16, 14, 6>,
+                            RegShape<16, 12, 7>, RegShape<16, 10, 8>, RegShape<16, 8, 10>,
+                            RegShape<8, 32, 6>>;
 
 struct ClusterChoice {
-  int cs;
+  int cs;                                      // blocks a lane (1: no cluster)
   bool registers;                              // else streamed
   int nw;                                      // warps a block of the register layout
 };
 
 // The layouts, tried in this order: the first that holds a shape runs it.
-constexpr ClusterChoice kLayouts[] = {{2, true, 16}, {2, true, 8}, {4, true, 16}, {8, true, 16},
-                                      {8, true, 8}, {8, false, 0}};
+constexpr ClusterChoice kLayouts[] = {{1, true, 8}, {2, true, 16}, {2, true, 8}, {4, true, 16},
+                                      {8, true, 16}, {8, true, 8}, {8, false, 0}};
 
 template <class S>
-bool reg_holds(int n, int m, int cs, int nw) {
-  return S::NW == nw && cdiv(n, 32) <= S::TC && cdiv(cdiv(m, cs), nw) <= S::RW;
+bool reg_holds(int n, int m, const ClusterChoice& c) {
+  return S::NW == c.nw && S::ONE_SM == (c.cs == 1) && cdiv(n, 32) <= S::TC &&
+         cdiv(cdiv(m, c.cs), c.nw) <= S::RW;
 }
 
-// Whether an instance of the list holds the shape with cs blocks of nw warps; with a launch,
-// launches the first that does (rc: its cudaError_t).
+// Whether an instance of the list holds the shape in layout c; with a launch, launches the
+// first that does (rc: its cudaError_t; bytes: a block's shared memory).
 template <class S, class... Rest>
-bool reg_instance(ShapeList<S, Rest...>, const AdmmArgs* a, int n, int m, int cs, int nw,
+bool reg_instance(ShapeList<S, Rest...>, const AdmmArgs* a, int n, int m, const ClusterChoice& c,
                   size_t bytes, cudaStream_t stream, int* rc) {
-  if (reg_holds<S>(n, m, cs, nw)) {
+  if (reg_holds<S>(n, m, c)) {
     if (a != nullptr)
-      *rc = launch_grid(reg_kernel<S::NW, S::RW, S::TC>, static_cast<unsigned>(a->B) * cs, cs,
-                        32 * S::NW, bytes, stream, *a);
+      *rc = launch_grid(reg_kernel<S::NW, S::RW, S::TC, S::ONE_SM>,
+                        static_cast<unsigned>(a->B) * c.cs, c.cs, 32 * S::NW, bytes, stream, *a);
     return true;
   }
   if constexpr (sizeof...(Rest) > 0)
-    return reg_instance(ShapeList<Rest...>{}, a, n, m, cs, nw, bytes, stream, rc);
+    return reg_instance(ShapeList<Rest...>{}, a, n, m, c, bytes, stream, rc);
   else
     return false;
 }
@@ -889,10 +964,15 @@ int stream_warps(int n, int m_s, int m_d, int cs) {
   return best;
 }
 
+// Whether layout c holds the shape: the streamed layout where its block fits; the register
+// layout where an instance holds the rows and the block's shared memory fits, on one SM (cs = 1)
+// for as many blocks as the instance's launch bounds keep there.
 bool holds(const ClusterChoice& c, int n, int m_s, int m_d) {
   if (!c.registers) return stream_warps(n, m_s, m_d, c.cs) > 0;
-  return RegLayout(n, m_s, m_d, c.cs, c.nw).fits() &&
-         reg_instance(RegShapes{}, nullptr, n, m_s + m_d, c.cs, c.nw, 0, nullptr, nullptr);
+  const size_t bytes = RegLayout(n, m_s, m_d, c.cs, c.nw).bytes;
+  const int blocks = reg_min_blocks(c.nw, c.cs == 1);
+  return bytes <= kMaxSharedBytes && blocks * (bytes + 1024) <= kSharedBytesPerSM &&
+         reg_instance(RegShapes{}, nullptr, n, m_s + m_d, c, 0, nullptr, nullptr);
 }
 
 // The first layout of kLayouts that holds the shape, or nullptr.
@@ -914,7 +994,7 @@ int structured_admm_cluster_launch(const AdmmArgs& a, cudaStream_t stream) {
   if (c->registers) {
     const RegLayout L(a.n, a.m_s, a.m_d, c->cs, c->nw);
     int rc = static_cast<int>(cudaErrorInvalidValue);
-    reg_instance(RegShapes{}, &a, a.n, a.m_s + a.m_d, c->cs, c->nw, L.bytes, stream, &rc);
+    reg_instance(RegShapes{}, &a, a.n, a.m_s + a.m_d, *c, L.bytes, stream, &rc);
     return rc;
   }
   const int nw = stream_warps(a.n, a.m_s, a.m_d, c->cs);
@@ -924,7 +1004,8 @@ int structured_admm_cluster_launch(const AdmmArgs& a, cudaStream_t stream) {
 }
 
 // The layout structured_admm_cluster_launch runs a shape in: 1 for the rows in registers, 0
-// for the rows streamed, -1 where no layout holds it; *cs blocks a lane, *nw warps a block.
+// for the rows streamed, -1 where no layout holds it; *cs blocks a lane (1: the lane on one SM,
+// no cluster), *nw warps a lane's block.
 extern "C" int structured_admm_cluster_layout(int n, int m_s, int m_d, int* cs, int* nw) {
   const ClusterChoice* c = layout_for(n, m_s, m_d);
   if (c == nullptr) return -1;

@@ -175,7 +175,11 @@ def cluster_layout(n: int, m_s: int, m_d: int) -> str:
     ``"registers cs=<blocks a lane> nw=<warps a block>"`` (the rows of
     [A_s; A_d] in the blocks' registers) or ``"streamed cs=.. nw=.."`` (from
     device memory once an iteration); ``kLayouts`` of
-    csrc/structured_admm_cluster.cu picks it from the shape alone."""
+    csrc/structured_admm_cluster.cu picks it from the shape alone.
+    ``"registers cs=1 nw=8"`` is the lane on one SM: one block of 8 warps a
+    lane, no cluster, two blocks an SM, both exchanges in the block's shared
+    memory (the connectivity teams of 30-33 robots, conn32's among them);
+    cs of 2 to 8 is a thread-block cluster of that many blocks a lane."""
     cs, nw = ctypes.c_int(), ctypes.c_int()
     code = _lib().structured_admm_cluster_layout(n, m_s, m_d, ctypes.byref(cs), ctypes.byref(nw))
     if code < 0:

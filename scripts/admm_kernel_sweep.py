@@ -5,7 +5,8 @@
                                          [--swarm-conn LAYOUT ...] [--swarm-fov LAYOUT ...]
                                          [--folded-at fov|conn|lambda2 LAYOUT ...]
                                          [--generic LAYOUT ...] [--generic-team24 LAYOUT ...]
-                                         [--cluster [LAYOUT ...]] [--stream [NW ...]]
+                                         [--cluster [LAYOUT ...]] [--cluster-at TARGET ...]
+                                         [--reg-shapes NW,RW,TC[,true] ...] [--stream [NW ...]]
                                          [--stage-clocks [SHAPE ...]] [--timing-check]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and nvcc.
@@ -47,16 +48,22 @@ shapes take) changed; --generic-team24 at the 24-agent fov team (59, 143,
 changed. --cluster times the cluster kernel (csrc/structured_admm_cluster.cu)
 with the copy's ``kLayouts`` line reduced to one layout CS,chip[,NW] or
 CS,mem (blocks a lane, the rows of [A_s; A_d] in the registers of NW warps a
-block (default 16) or streamed from device memory; none named: 2, 4 and 8 in
-registers of 16 warps, 2, 4 and 8 of 8 warps, 8 streamed) at the fov teams
-of 40, 64, 96, 128, 256 and 400 agents on 760, 512, 96, 512, 256 and 256
-lanes (the lanes of one launch of benchmarks/swarm.py's step: 19 rings of
-40, 8 of 64, one ring of 96, 4 rings of 128, a lane chunk of 256; 550 + 50 +
-150 + 50) and the connectivity teams of 128 and 256 robots on 128 and 256
-lanes (one run_sim team; 150 + 50 + 150 + 50); a layout that does not hold
-a shape is reported as refused (the report names the register layout's
-instance the shape takes, RegShape<NW, RW, TC>). Inputs of the cluster
-shapes repeat 8 distinct lanes.
+block (default 16) or streamed from device memory; CS = 1: the lane on one
+SM, no cluster; none named: 1 block of 8 warps, 2, 4 and 8 in registers of
+16 warps, 2, 4 and 8 of 8 warps, 8 streamed) at the fov teams of 40, 64, 96,
+128, 256 and 400 agents on 760, 512, 96, 512, 256 and 256 lanes (the lanes
+of one launch of benchmarks/swarm.py's step: 19 rings of 40, 8 of 64, one
+ring of 96, 4 rings of 128, a lane chunk of 256; 550 + 50 + 150 + 50), the
+connectivity teams of 128 and 256 robots on 128 and 256 lanes (one run_sim
+team) and conn32's 32 robots on 32768 lanes (1024 teams; 150 + 50 + 150 +
+50 for both); a layout that does not hold a shape is reported as refused
+(the report names the register layout's instance the shape takes,
+RegShape<NW, RW, TC, ONE_SM>).
+--cluster-at names the targets timed (none: all). --reg-shapes adds
+instances NW,RW,TC[,true] (true: one SM) to the copy's ``RegShapes`` line,
+so that a layout the package has no instance for can be timed (16 warps on
+one SM at conn32: 16,14,3,true). Inputs of the cluster shapes repeat 8
+distinct lanes.
 --stream times the streamed layout of the cluster kernel with the copy's
 ``kStreamWarps`` line reduced to one count NW of warps a block (none named:
 8 and 4; at most 8, the kernel's launch bounds) at the fov teams of 256 and
@@ -66,11 +73,14 @@ block is reported as refused.
 STAGE markers of the cluster, folded and tiled kernels then count clocks;
 the package's build leaves them empty) and prints, for one launch of 150
 iterations at each SHAPE (none named: cluster_fov128 and cluster_fov64; the
+one-SM layout: cluster_conn32; the
 folded kernel's: swarm_fov, swarm_conn, fov_folded; the tiled kernel's:
 conn, lambda2; on the lanes of one launch of their steps), the clocks
 thread 0 of block 0 spent an iteration in each stage of the loop: for
 cluster the column sums, the block meeting, barrier 1, RHS, xt = C RHS,
-barrier 2, the row sums and updates; for folded the column sums (with the r
+barrier 2, the row sums and updates (on one SM: the column sums, barrier 1,
+the meeting and RHS, barrier 2, xt = C RHS, barrier 3, the row sums and
+updates); for folded the column sums (with the r
 of the rows), barrier 1, RHS, barrier 2, xt = C RHS, barrier 3, the row
 sums, barrier 4, the row updates, barrier 5 (a stage the loop does not have
 counts 0); for tiled, its tensor-core loop's RHS and S = Ms_inv RHS (thread
@@ -141,6 +151,9 @@ SHAPES = {"fov": Target(8192, (43, 127, 84), PHASES, "Fov", TILED, "tiled", None
           **{f"cluster_conn{R}": Target(R, (35 + R, 125 + R, 2 * R - 2), RUN_SIM_PHASES,
                                         "kLayouts", CLUSTER, "cluster", None)
              for R in (128, 256)},
+          # conn32.fleet's launch: 1024 teams of 32 robots
+          "cluster_conn32": Target(32768, (67, 157, 62), RUN_SIM_PHASES, "kLayouts", CLUSTER,
+                                   "cluster", None),
           # --stream: the kStreamWarps line
           **{f"stream_fov{A}": Target(256, fused_admm.fov_team_shape(A), SWARM_FOV_PHASES,
                                       "kStreamWarps", CLUSTER, "cluster", None)
@@ -148,7 +161,8 @@ SHAPES = {"fov": Target(8192, (43, 127, 84), PHASES, "Fov", TILED, "tiled", None
 GENERIC_TARGETS = {"generic": ("generic_sweep_r10", "generic_run_sim"),
                    "generic_team24": ("generic_team24",)}
 CLUSTER_TARGETS = tuple(name for name in SHAPES if name.startswith("cluster"))
-CLUSTER_LAYOUTS = ["2,chip", "4,chip", "8,chip", "2,chip,8", "4,chip,8", "8,chip,8", "8,mem"]
+CLUSTER_LAYOUTS = ["1,chip,8", "2,chip", "4,chip", "8,chip", "2,chip,8", "4,chip,8", "8,chip,8",
+                   "8,mem"]
 STREAM_TARGETS = tuple(name for name in SHAPES if name.startswith("stream"))
 STREAM_LAYOUTS = ["8", "4"]
 STAGE_TARGETS = ["cluster_fov128", "cluster_fov64"]
@@ -157,6 +171,8 @@ TILED_STAGE_TARGETS = ["conn", "lambda2"]
 #: the stages of an iteration, by kernel; the reader of its clocks
 STAGES = {"cluster": ("column sums", "block meeting", "barrier 1", "RHS", "xt = C RHS",
                       "barrier 2", "row sums and updates"),
+          "cluster cs=1": ("column sums", "barrier 1", "meeting and RHS", "barrier 2",
+                           "xt = C RHS", "barrier 3", "row sums and updates"),
           "folded": ("column sums", "barrier 1", "RHS", "barrier 2", "xt = C RHS", "barrier 3",
                      "row sums", "barrier 4", "row updates", "barrier 5"),
           "tiled": ("RHS and S = Ms_inv RHS", "wait 1", "t and xt = S - WK t", "dynamic rows",
@@ -186,15 +202,22 @@ def cuda_ms(fn, reps=3, spin=True):
     return start.elapsed_time(end) / reps
 
 
-def build(layouts: dict, defines=()):
-    """Compile a copy of csrc/ with each shape's layout and the macros ``defines``;
-    returns (library, ptxas report)."""
+def build(layouts: dict, defines=(), reg_shapes=()):
+    """Compile a copy of csrc/ with each shape's layout, the register layout's instances
+    ``reg_shapes`` (NW,RW,TC[,true]) added and the macros ``defines``; returns (library, ptxas
+    report)."""
     out = ROOT / "build" / "sweep" / ("_".join(
         f"{name}{layout}" for name, layout in layouts.items()).replace(",", "-")
+        + "".join(f"_r{s.replace(',', '-')}" for s in reg_shapes)
         + "".join(f"_{d}" for d in defines))
     out.mkdir(parents=True, exist_ok=True)
     for src in _build.SOURCES + _build.HEADERS:
         text = src.read_text()
+        if src.name == CLUSTER and reg_shapes:
+            text, n = re.subn(r"(using RegShapes = ShapeList<)", r"\g<1>" + "".join(
+                f"RegShape<{s.replace(',', ', ')}>, " for s in reg_shapes), text)
+            if n != 1:
+                raise RuntimeError(f"{src.name}: {n} RegShapes lines")
         for name, layout in layouts.items():
             if src.name != SHAPES[name].source:      # an alias may name a line of another source
                 continue
@@ -248,7 +271,8 @@ def build(layouts: dict, defines=()):
             if place == "chip":
                 inst = reg_instance((out / CLUSTER).read_text(), SHAPES[name].shape, int(cs),
                                     int((nw or [16])[0]))
-                key, kernel = "reg_kernel", "reg_kernelILi%dELi%dELi%dE" % (inst or (0, 0, 0))
+                key, kernel = "reg_kernel", "reg_kernelILi%dELi%dELi%dELb%dE" % (
+                    inst or (0, 0, 0, 0))
         elif name.startswith("generic"):                # GenericShape<TC, MAXW, P, MINB>
             tc, maxw, *rest = (f.strip() for f in layouts[name].split(","))
             p, minb = (rest + ["4", "1"][len(rest):])[:2]
@@ -261,15 +285,17 @@ def build(layouts: dict, defines=()):
 
 
 def reg_instance(text, shape, cs, nw):
-    """(NW, RW, TC) of the first RegShape of the source ``text`` that holds the
-    shape with cs blocks of nw warps (the kernel's reg_instance), or None."""
+    """(NW, RW, TC, ONE_SM) of the first RegShape of the source ``text`` that holds the
+    shape with cs blocks of nw warps (the kernel's reg_instance; cs = 1 takes the
+    ONE_SM instances, else the others), or None."""
     start = text.index("using RegShapes")
     n, m = shape[0], shape[1] + shape[2]
     cdiv = lambda a, b: -(-a // b)
-    for NW, RW, TC in (tuple(map(int, t)) for t in re.findall(
-            r"RegShape<(\d+), (\d+), (\d+)>", text[start:text.index(";", start)])):
-        if NW == nw and cdiv(n, 32) <= TC and cdiv(cdiv(m, cs), nw) <= RW:
-            return NW, RW, TC
+    for NW, RW, TC, one_sm in ((int(a), int(b), int(c), d == "true") for a, b, c, d in re.findall(
+            r"RegShape<(\d+), (\d+), (\d+)(?:, (true|false))?>",
+            text[start:text.index(";", start)])):
+        if NW == nw and one_sm == (cs == 1) and cdiv(n, 32) <= TC and cdiv(cdiv(m, cs), nw) <= RW:
+            return NW, RW, TC, one_sm
     return None
 
 
@@ -297,9 +323,15 @@ def stage_clocks(names, iters=150):
             torch.cuda.synchronize()
             if read(got.ctypes.data):
                 raise RuntimeError("reading the stage clocks failed")
-        per = got[:len(STAGES[variant])].astype(np.float64) / iters
-        print(f"stage clocks, {name} {shape} at B={B}, {iters} iterations ({variant}): "
-              + ", ".join(f"{stage} {c:.0f}" for stage, c in zip(STAGES[variant], per))
+        stages, label = STAGES[variant], variant
+        if variant == "cluster":                      # the layout the shape runs in
+            cs, nw = ctypes.c_int(), ctypes.c_int()
+            lib.structured_admm_cluster_layout(*shape, ctypes.byref(cs), ctypes.byref(nw))
+            stages = STAGES["cluster cs=1"] if cs.value == 1 else stages
+            label = f"cluster cs={cs.value} nw={nw.value}"
+        per = got[:len(stages)].astype(np.float64) / iters
+        print(f"stage clocks, {name} {shape} at B={B}, {iters} iterations ({label}): "
+              + ", ".join(f"{stage} {c:.0f}" for stage, c in zip(stages, per))
               + f"; an iteration {per.sum():.0f} clocks", flush=True)
 
 
@@ -348,6 +380,11 @@ def main():
     ap.add_argument("--cluster", nargs="*",
                     help="CS,chip[,NW] or CS,mem layouts of the cluster kernel (none named: "
                          + " ".join(CLUSTER_LAYOUTS) + ")")
+    ap.add_argument("--cluster-at", nargs="+", choices=CLUSTER_TARGETS,
+                    help="the shapes --cluster times (none named: all)")
+    ap.add_argument("--reg-shapes", nargs="+", default=(),
+                    help="NW,RW,TC[,true] instances of the register layout added to the copy "
+                         "(true: one SM), e.g. 16,14,3,true")
     ap.add_argument("--stream", nargs="*",
                     help="warps a block of the cluster kernel's streamed layout (none named: "
                          + " ".join(STREAM_LAYOUTS) + ")")
@@ -363,7 +400,8 @@ def main():
              and not name.startswith(("generic", "cluster", "stream"))
              and getattr(opt, name)}
     if opt.cluster is not None:
-        asked.update({name: opt.cluster or CLUSTER_LAYOUTS for name in CLUSTER_TARGETS})
+        asked.update({name: opt.cluster or CLUSTER_LAYOUTS
+                      for name in opt.cluster_at or CLUSTER_TARGETS})
     if opt.stream is not None:
         asked.update({name: opt.stream or STREAM_LAYOUTS for name in STREAM_TARGETS})
     for option, targets in GENERIC_TARGETS.items():
@@ -421,7 +459,7 @@ def main():
         print("layouts " + ", ".join(f"{name} {layout}" for name, layout in layouts.items()) + ":",
               flush=True)
         try:
-            lib, report = build(layouts)
+            lib, report = build(layouts, reg_shapes=opt.reg_shapes)
         except RuntimeError as err:                   # a layout the source's static_asserts refuse
             print(f"  not built: {str(err)[-600:]}")
             continue

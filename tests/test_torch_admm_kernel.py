@@ -63,8 +63,12 @@ TEAM128_FOV, TEAM256_FOV = fused_admm.fov_team_shape(128), fused_admm.fov_team_s
 TEAM400_FOV = fused_admm.fov_team_shape(400)
 TEAM128_CONN, TEAM256_CONN, TEAM320_CONN = (163, 253, 254), (291, 381, 510), (355, 445, 638)
 # the 32-robot connectivity team of build_sim with slack on (the benchmark's
-# conn32): past generic's n = 64 and no folded instance, so cluster's
+# conn32): past generic's n = 64 and no folded instance, so cluster's, on one
+# SM; the connectivity teams of 30 and 33 robots, the smallest and the largest
+# that take that layout, and of 34, the first past it
 CONN32 = (67, 157, 62)
+TEAM30_CONN, TEAM33_CONN, TEAM34_CONN = (65, 155, 58), (68, 158, 64), (69, 159, 66)
+ONE_SM = "registers cs=1 nw=8"
 KW = dict(iters=40, sigma=1e-6, alpha=1.6)
 
 
@@ -436,13 +440,14 @@ def test_kernel_matches_twin_on_gpu(shape, B, took):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,B,layout", [(CONN32, 64, "registers cs=2 nw=16"),
+@pytest.mark.parametrize("shape,B,layout", [(CONN32, 64, ONE_SM),
                                             (TEAM256_FOV, 2, "streamed cs=8 nw=8")])
 def test_cluster_launches_count_their_layout_on_gpu(shape, B, layout):
     """Each launch of the cluster kernel counts once under the layout it ran
     in (``launches_by_layout``, read from the kernel's own ``layout_for``):
-    the 32-robot connectivity lane with its rows in the registers of 2 blocks
-    of 16 warps, the 256-agent fov lane streamed through 8 blocks of 8 warps."""
+    the 32-robot connectivity lane with its rows in the registers of one block
+    of 8 warps (no cluster, two blocks an SM), the 256-agent fov lane streamed
+    through 8 blocks of 8 warps."""
     _need_gpu()
     arrays = [torch.from_numpy(a).cuda() for a in _inputs(B, seed=26, shape=shape)]
     before = dict(structured_admm_iterations.launches_by_layout)
@@ -451,6 +456,46 @@ def test_cluster_launches_count_their_layout_on_gpu(shape, B, layout):
     after = structured_admm_iterations.launches_by_layout
     assert {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)} == \
         {layout: 1}
+    assert fused_admm.cluster_layout(*shape) == layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,B", [(CONN32, 64), (TEAM30_CONN, 64), (TEAM33_CONN, 64),
+                                     (CONN32, 3)])
+@pytest.mark.parametrize("iters", [40, 150])
+def test_one_sm_layout_matches_twin_on_gpu(shape, B, iters):
+    """The cluster kernel's register layout on one SM (one lane a block of 8
+    warps, two blocks an SM, both exchanges in the block's shared memory)
+    against the twin at conn32's lane and at the smallest and the largest
+    connectivity team it takes, for 40 iterations and for the 150 of a
+    step's longest phase; the bar of two float32 loops that sum in another
+    order."""
+    _need_gpu()
+    assert fused_admm.cluster_layout(*shape) == ONE_SM
+    arrays = [torch.from_numpy(a).cuda() for a in _inputs(B, seed=27, shape=shape)]
+    before = dict(structured_admm_iterations.launches_by_layout)
+    out_k = structured_admm_iterations(*arrays, **dict(KW, iters=iters))
+    out_t = structured_admm_iterations_ref(*arrays, **dict(KW, iters=iters))
+    torch.cuda.synchronize()
+    assert structured_admm_iterations.launches_by_layout[ONE_SM] == before.get(ONE_SM, 0) + 1
+    for a, b in zip(out_k, out_t):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,layout", [
+    (TEAM30_CONN, ONE_SM), (CONN32, ONE_SM), (TEAM33_CONN, ONE_SM),
+    (TEAM34_CONN, "registers cs=2 nw=16"),
+    (TEAM40_FOV, "registers cs=2 nw=16"), (TEAM64_FOV, "registers cs=4 nw=16"),
+    (TEAM96_FOV, "registers cs=8 nw=16"), (TEAM128_FOV, "registers cs=8 nw=16"),
+    (TEAM256_FOV, "streamed cs=8 nw=8"), (TEAM400_FOV, "streamed cs=8 nw=4"),
+    (TEAM128_CONN, "registers cs=2 nw=8"), (TEAM256_CONN, "registers cs=8 nw=16")])
+def test_cluster_layouts_by_shape_on_gpu(shape, layout):
+    """The layout the cluster kernel's ``layout_for`` gives each shape: one
+    SM for the connectivity teams of 30-33 robots, and for every other shape
+    of chip_smoke.py's cluster table the layout it had before the one-SM
+    layout came (the 34-robot team, the first past it, too)."""
+    _need_gpu()
     assert fused_admm.cluster_layout(*shape) == layout
 
 
@@ -479,12 +524,12 @@ def test_generic_kernels_take_the_fov_shapes_on_gpu(variant, shape, B):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [FOV, CONN, CONN_LAMBDA2, SWARM_CONN, SWEEP_R10, TEAM128_CONN,
-                                   TEAM256_FOV])
+                                   TEAM256_FOV, CONN32])
 def test_nan_lane_leaves_its_block_untouched_on_gpu(shape):
     """The tiled kernel runs several lanes in one block, the folded and
     generic kernels several blocks on one SM, the cluster kernel a lane on
-    several SMs beside other lanes; a lane that goes NaN changes no bit of
-    any other lane."""
+    several SMs beside other lanes, or (conn32's lane) two blocks of one lane
+    each on one SM; a lane that goes NaN changes no bit of any other lane."""
     _need_gpu()
     arrays = [torch.from_numpy(a).cuda() for a in _inputs(13, seed=23, shape=shape)]
     clean = structured_admm_iterations(*arrays, **KW)

@@ -148,16 +148,35 @@ def stream_loop(*args, iters, sigma, alpha, cs, nw):
 def source_layouts():
     """(kLayouts, RegShapes) as csrc/structured_admm_cluster.cu writes them:
     [(blocks, registers, warps)] in the order tried, and the register layout's
-    instances [(warps, rows a strip, column slots)] in the order tried."""
+    instances [(warps, rows a strip, column slots, one SM)] in the order
+    tried."""
     text = SOURCE.read_text()
     def statement(head):
         start = text.index(head)
         return text[start:text.index(";", start)]
     layouts = [(int(cs), reg == "true", int(nw)) for cs, reg, nw in re.findall(
         r"\{(\d+), (true|false), (\d+)\}", statement("constexpr ClusterChoice kLayouts"))]
-    shapes = [tuple(map(int, t)) for t in
-              re.findall(r"RegShape<(\d+), (\d+), (\d+)>", statement("using RegShapes"))]
+    shapes = [(int(a), int(b), int(c), d == "true") for a, b, c, d in re.findall(
+        r"RegShape<(\d+), (\d+), (\d+)(?:, (true|false))?>", statement("using RegShapes"))]
     return layouts, shapes
+
+
+def min_blocks(nw, one_sm):
+    """Blocks an SM the launch bounds of an instance ask for (the kernel's
+    ``reg_min_blocks``): one where a lane spans a cluster, else 16 warps an SM."""
+    return max(1, 16 // nw) if one_sm else 1
+
+
+def layout_holds(n, m, cs, nw, shapes):
+    """The first instance (warps, rows a strip, column slots, one SM) that
+    holds the shape in the register layout of cs blocks of nw warps, where its
+    shared memory fits (on one SM, cs = 1, for as many blocks as the launch
+    bounds keep there), or None (the kernel's ``holds`` and ``reg_holds``)."""
+    size = register_bytes(n, m, cs, nw)
+    if size > 232448 or min_blocks(nw, cs == 1) * (size + 1024) > 233472:
+        return None
+    return next((s for s in shapes if s[0] == nw and s[3] == (cs == 1) and cdiv(n, 32) <= s[2]
+                 and cdiv(cdiv(m, cs), nw) <= s[1]), None)
 
 
 def register_bytes(n, m, cs, nw):
@@ -173,20 +192,18 @@ def register_bytes(n, m, cs, nw):
 
 
 def register_layout(n, m_s, m_d):
-    """(blocks, warps, (warps, rows a strip, column slots)) of the register
-    layout that runs the shape (the first of kLayouts that holds it, then the
-    first instance that holds it), or None where the shape is streamed."""
+    """(blocks, warps, (warps, rows a strip, column slots, one SM)) of the
+    register layout that runs the shape (the first of kLayouts that holds
+    it, then the first instance that holds it), or None where the shape is
+    streamed."""
     m = m_s + m_d
     layouts, shapes = source_layouts()
     for cs, registers, nw in layouts:
         if not registers:
             return None
-        if register_bytes(n, m, cs, nw) > 232448:
-            continue
-        for shape in shapes:
-            NW, RW, TC = shape
-            if NW == nw and cdiv(n, 32) <= TC and cdiv(cdiv(m, cs), nw) <= RW:
-                return cs, nw, shape
+        shape = layout_holds(n, m, cs, nw, shapes)
+        if shape is not None:
+            return cs, nw, shape
     return None
 
 
@@ -196,19 +213,24 @@ def kernel_warps(shape, cs):
     n, m = shape[0], shape[1] + shape[2]
     layouts, shapes = source_layouts()
     return next(nw for c, registers, nw in layouts if registers and c == cs
-                and any(s[0] == nw and cdiv(n, 32) <= s[2] and cdiv(cdiv(m, cs), nw) <= s[1]
-                        for s in shapes))
+                and layout_holds(n, m, c, nw, shapes) is not None)
 
 
+# connectivity teams of 30, 32 (conn32) and 33 robots, the teams whose lane
+# fits one SM
+CONN30, CONN32, CONN33 = (65, 155, 58), (67, 157, 62), (68, 158, 64)
 # (lanes, shape, blocks a lane, iterations): a 128-robot connectivity team (on 4
 # blocks of 16 warps, and on the 2 blocks of 8 warps the kernel gives it) and a
 # synthetic shape with few rows at the cluster sizes the kernel gives them (at 8
 # blocks some strips of 16 warps hold no row); a 128-agent fov team (163, 247,
 # 1524) and a 140-agent one (175, 259, 1668: 8 blocks of 8 warps) on one lane for
-# a short phase. Each on the warps the kernel gives it at that many blocks
+# a short phase; the connectivity teams of 30, 32 and 33 robots on one SM (one
+# block of 8 warps) and conn32 on the 2 blocks of 16 warps it took before. Each
+# on the warps the kernel gives it at that many blocks
 CASES = [(2, (163, 253, 254), 4, 40), (3, (170, 20, 12), 2, 40), (2, (170, 20, 12), 8, 40),
          (1, fused_admm.fov_team_shape(128), 8, 8), (2, (163, 253, 254), 2, 40),
-         (1, fused_admm.fov_team_shape(140), 8, 8)]
+         (1, fused_admm.fov_team_shape(140), 8, 8), (3, CONN30, 1, 40), (2, CONN32, 1, 40),
+         (2, CONN33, 1, 40), (2, CONN32, 2, 40)]
 # (lanes, shape, blocks, warps a block, iterations) of the streamed layout: a
 # 256-robot connectivity team (its rows straddle A_s's last row inside a
 # block), a 400-agent fov team (435, 519, 4788) on one lane for a short phase,
@@ -313,27 +335,45 @@ TEAMS = ([("fov", A, fused_admm.fov_team_shape(A)) for A in range(30, 147) if A 
 def test_the_register_layout_holds_every_on_chip_team():
     """Every fov team of 30-146 agents (but 32, the folded kernel's) and every
     connectivity team of 30-257 robots, the teams whose rows sat on chip
-    before, takes the register layout: the fewest blocks (2, 4, 8) whose
+    before, takes the register layout: the fewest blocks (1, 2, 4, 8) whose
     strips fit an instance, whose strips take every row once, whose rows fit
     the registers (RW x TC under the registers a thread may have: 255 at 8
-    warps, 128 at 16; a block's rows under an SM's 65 536) and whose shared
-    memory fits a block. ptxas's report of no spill is held on the card
+    warps an SM, 128 at 16; a block's rows under an SM's 65 536) and whose
+    shared memory fits a block (on one SM, as many blocks as its launch bounds
+    keep there). ptxas's report of no spill is held on the card
     (chip_smoke.py)."""
     layouts, shapes = source_layouts()
     for family, size, (n, m_s, m_d) in TEAMS:
         got = register_layout(n, m_s, m_d)
         assert got is not None, f"{family} {size} {(n, m_s, m_d)} is streamed"
-        cs, nw, (NW, RW, TC) = got
+        cs, nw, (NW, RW, TC, one_sm) = got
         m = m_s + m_d
-        assert NW == nw and cdiv(n, 32) <= TC and cdiv(cdiv(m, cs), nw) <= RW
-        assert RW * TC < min(255, 65536 // (32 * nw))
+        assert NW == nw and one_sm == (cs == 1) and cdiv(n, 32) <= TC
+        assert cdiv(cdiv(m, cs), nw) <= RW
+        warps_an_sm = nw * min_blocks(nw, one_sm)
+        assert RW * TC < min(255, 65536 // (32 * warps_an_sm))
         assert cdiv(m, cs) * 32 * TC <= 65536 and register_bytes(n, m, cs, nw) <= 232448
         fewer = [c for c, registers, w in layouts if registers and c < cs
-                 and any(s[0] == w and cdiv(n, 32) <= s[2] and cdiv(cdiv(m, c), w) <= s[1]
-                         for s in shapes)]
+                 and layout_holds(n, m, c, w, shapes) is not None]
         assert not fewer, f"{family} {size}: {fewer} blocks would hold it"
         rows = torch.cat([w for warps in register_groups(m, cs, nw) for w in warps])
         assert torch.equal(rows, torch.arange(m))
+
+
+def test_the_lanes_that_fit_one_sm_take_it():
+    """The register layout on one SM (one lane a block of 8 warps, two blocks
+    an SM, no cluster) takes exactly the connectivity teams of 30-33 robots
+    among the teams of 2-512 agents or robots that cluster runs (conn32's
+    among them; the fov teams from 30 agents have 497 rows or more, past an
+    8-warp strip of 28), with its two blocks' shared memory within an SM."""
+    teams = ([("fov", A, fused_admm.fov_team_shape(A)) for A in range(30, 513) if A != 32]
+             + [("connectivity", R, (35 + R, 125 + R, 2 * R - 2)) for R in range(30, 513)])
+    one_sm = [(family, size) for family, size, s in teams
+              if (register_layout(*s) or (0,))[0] == 1]
+    assert one_sm == [("connectivity", R) for R in range(30, 34)]
+    assert register_layout(*CONN32) == (1, 8, (8, 28, 3, True))
+    assert register_layout(35 + 34, 125 + 34, 66) == (2, 16, (16, 20, 3, False))
+    assert 2 * (register_bytes(67, 219, 1, 8) + 1024) <= 233472
 
 
 @pytest.mark.parametrize("m,m_s,cs,nw", [(891, 381, 8, 8), (5307, 519, 8, 8), (39, 30, 8, 8)])

@@ -52,13 +52,14 @@ def _ring(seed):
 def test_build_sim_gives_the_conn32_lane():
     """(35 + R, 125 + R, 2R - 2) at R = 32: n above the generic kernel's 64 and
     no folded instance, so the card runs it on the cluster kernel, whose first
-    layout that holds it keeps the rows in the registers of 2 blocks of 16 warps
-    (7 rows a warp's strip, 3 column slots)."""
+    layout that holds it keeps the lane on one SM: its rows in the registers of
+    one block of 8 warps (28 rows a warp's strip, 3 column slots), two blocks an
+    SM, no cluster."""
     simpc = _sim()._structured_impc()
     op = simpc.op_qp
     assert (op.n, op.m_s, op.m_d) == (67, 157, 62)
     assert not op.wk_form and op._lane_chunk(32 * 1024) == 0
-    assert register_layout(67, 157, 62) == (2, 16, (16, 20, 3))
+    assert register_layout(67, 157, 62) == (1, 8, (8, 28, 3, True))
 
 
 def test_control_step_equals_its_two_lane_chunks():
