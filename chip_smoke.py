@@ -14,11 +14,11 @@ sm_90a: an H100). It
    twin at 40 iterations to rtol = atol = 2e-4, each through the wrapper at
    a shape that takes it: folded at the fov flagship's shapes (43, 127,
    84; the main path) on 1001 and 3 lanes and for the step's longest phase
-   of 150 iterations, tiled there by name on WK against the Woodbury twin,
-   tiled at the connectivity and λ₂/CLF connectivity shapes (1001 lanes: a
-   ragged last block; 3 lanes: fewer than a block holds; 1001 lanes for the
-   step's longest phase of 150 iterations) and folded there by name, folded at the 32-agent connectivity shapes (36,
-   126, 62) on 1001 and 3 lanes (and for its longest phase, 50) and the 32-agent fov shapes (67, 151, 372)
+   of 150 iterations, tiled at the connectivity and λ₂/CLF connectivity
+   shapes (1001 lanes: a ragged last block; 3 lanes: fewer than a block
+   holds; 1001 lanes for the step's longest phase of 150 iterations), folded
+   at the 32-agent connectivity shapes (36, 126, 62) on 1001 and 3 lanes
+   (and for its longest phase, 50) and the 32-agent fov shapes (67, 151, 372)
    on 64 and 3 lanes and, on 64 lanes, for the 550 iterations of the step's
    longest phase, generic at the shapes (38, 128, 4) and the 3 lanes of
    run_sim --controller connectivity on a 3-robot team (step 17), at every
@@ -46,36 +46,31 @@ sm_90a: an H100). It
    raises), and that the tiled kernel takes exactly the shapes whose
    operand is WK;
 4. times kernel and twin for each rho phase length of a control step (150 +
-   50 cold, 32 + 32 warm) at 8192 fov and 32768 connectivity lanes (fov:
-   folded, and tiled by name; connectivity and λ₂/CLF: tiled, and folded by
-   name), fails unless the fov flagship's folded kernel and C builds take
-   less device time than the tiled kernel and the Woodbury builds, and at
-   the lanes and phase lengths a launch of steps 7 and 7b gets: the folded
-   kernel at 4096 lanes (4 x 50 iterations) and at one lane chunk of 2048
-   (550 + 50 + 150 + 50), generic at the 3 lanes of one run_sim team (150
-   + 50 + 150 + 50), at each sweep team's 15 R lanes (the same phases) and
-   at the 24-agent step's 768 lanes, generic at the 40- and 64-agent steps'
+   50 cold, 32 + 32 warm) at 8192 fov (folded) and 32768 connectivity lanes
+   (connectivity and λ₂/CLF: tiled), and at the lanes and phase lengths a
+   launch of steps 7 and 7b gets: the folded kernel at 4096 lanes (4 x 50
+   iterations) and at one lane chunk of 2048 (550 + 50 + 150 + 50), generic
+   at the 3 lanes of one run_sim team (150 + 50 + 150 + 50), at each sweep
+   team's 15 R lanes (the same phases) and at the 24-agent step's 768 lanes,
+   generic at the 40- and 64-agent steps'
    launches and cluster at the 40-, 64-, 96-, 128- and 400-agent steps' (760,
    512, 96 and 512 lanes; a lane chunk of 256), at a lane chunk of a
    256-agent step and at one run_sim team of 128 and of 256 connectivity
    robots; for every kernel that takes C also
    the C builds of the step's phases (folded_c: cuBLAS and cuSOLVER), for
    tiled the Woodbury builds (woodbury); prints
-   each time beside its bound
-   (the slowest of the float32 operations, the float64 operations, the
-   TF32 tensor-core operations and the bytes, from the shapes and the card's
-   peaks; the operations are the fewest a known form of the loop needs, see
-   bound()), and the
+   each time beside the loop's bound (portbench/roofline_k3.py::k3_bound_s:
+   the least time of the iterations alone, C given, from the shapes and the
+   card's peaks; the same bound whatever kernel runs the loop), and the
    microseconds and clocks of one iteration (at the SM clock nvidia-smi
    reads after the window; the log adds the barriers an iteration the source
    writes);
 5. drives the main path (StructuredIMPC(FovIMPCCBF) with the structured
    ADMM (iters 200, tail 64) on 8192 lanes of bench.py's fov recipe),
    checks that it launched the folded kernel 4 times per call and that every
-   flyable lane is finite, times 5 calls, runs the same call with the
-   Woodbury WK through the tiled kernel by name (the route must not lower the
-   usable rate) and through the plain loop: the usable-lane rates must agree
-   within 1 point and stay at or above 0.70;
+   flyable lane is finite, times 5 calls, runs the same call through the
+   plain loop: the usable-lane rates must agree within 1 point and stay at
+   or above 0.70;
 6. runs one connectivity control step at 32768 lanes (tiled kernel, 4
    launches, usable >= 0.99), its stage split, and the same step through the
    plain loop (success flags equal on at least 99 % of the lanes);
@@ -119,8 +114,9 @@ sm_90a: an H100). It
     8192 lanes: certified lanes must be usable lanes, certified rate >= 0.95;
 12. a closed loop: MultiAgentSim(structured=True) with IPM_F32_ENTRY, 8 fov
     robots x 1024 scenarios (random_instance seeds 0..1023) = 8192 lanes a
-    step, 10 steps (1 s); every trajectory must be finite, and the mean
-    per-step solver success and the instance_success share are reported.
+    step, 10 steps (1 s): every trajectory must be finite, and the mean
+    per-step solver success and the instance_success share are reported
+    (not timed: the benchmark's fov8.fleet cell times this traffic);
 13. the 4-robot connectivity step with the λ₂/CLF rows
     (ConnectivityIMPCCBF(enable_connectivity=True), shapes (36, 126, 14))
     through StructuredIMPC at 32768 lanes: it must launch the tiled kernel
@@ -207,25 +203,23 @@ call each, not three; the CBF-only loops fly 30 steps, not 60.
 Expected on one NVIDIA H100 80GB HBM3 at 700 W (PERF.md; the wall times
 follow the host): every kernel variant within 1.3e-4 of its twin (under
 6.2e-5 for folded, also after 550 iterations); one fov control step's four
-phases at 8192 lanes 7.1 ms in the folded kernel (bound 1.17 ms, 16.4 % of
-it reached; twin 157 ms) and 11.3 ms of C builds, against 16.0 ms in the
-tiled kernel by name and 89 ms of Woodbury builds; connectivity at 32768
-lanes 8.8-9.1 ms through tiled's tensor-core loop (bound 0.95 ms, 10.4 %;
-folded by name 19.0); the λ₂/CLF step at 32768 lanes 10.3-10.9 ms (bound
-0.95 ms; folded by name 18.9); the
+phases at 8192 lanes 7.1 ms in the folded kernel (bound 0.466 ms, 6.6 % of
+it reached; twin 110-157 ms) and 11.3 ms of C builds; connectivity at 32768
+lanes 8.8-9.1 ms through tiled's tensor-core loop; the λ₂/CLF step at 32768
+lanes 10.3-10.9 ms; the
 folded kernel 2.07 ms for the 32-agent connectivity step's four launches at
-4096 lanes (bound 0.33 ms) and 39.8 ms for the 32-agent fov step's four
-launches at 4096 lanes (bound 6.86 ms, 17.2 %); generic 0.48 ms for one
+4096 lanes (bound 0.120 ms) and 39.8 ms for the 32-agent fov step's four
+launches at 4096 lanes (bound 4.876 ms, 12.3 %); generic 0.48 ms for one
 run_sim connectivity step on 3 lanes, 0.48-0.62 ms at the sweep's teams,
 9.1 ms at the 24-agent fov shapes on 768 lanes; cluster 46.5 / 74.7 ms at
 the 40- / 64-agent steps, 21.3 ms at the 96-agent ring, 193 ms at the
-128-agent step's 512 lanes (bound 7.06 ms, 3.7 %), 362 ms at a 256-lane
+128-agent step's 512 lanes (bound 6.075 ms, 3.1 %), 362 ms at a 256-lane
 chunk of 256 agents (rows and C streamed; twin 776 ms) and 941 ms at one of
 400 agents (twin 1540 ms), 16.0-17.7 / 84.2-84.8 ms at one team of
 128 / 256 connectivity robots; the C builds (folded_c) beside each, from
 0.47 ms (3 lanes) to 105 ms (256 lanes of 400 agents) a step's four phases;
-fov ADMM usable 0.7101 (plain route 0.7101, flags equal; the tiled kernel
-on WK 0.7097), 52-71 ms per call;
+fov ADMM usable 0.7101 (plain route 0.7101, flags equal), 52-71 ms per
+call;
 connectivity ADMM usable 0.9933, 16 ms, flags equal to the plain loop's on
 every lane; 32-agent connectivity usable
 1.0000, 10-12 ms (f32 IPM: 1.0000, 225-450 ms); 32-agent fov usable 0.9902
@@ -242,8 +236,8 @@ package gives the same flags), 47-68 ms a call; the f64 IPM on the card
 within 2.5e-4 of the host CPU; fov f32 IPM usable 0.9974, 500-1400 ms per
 call at chunk 2048 and 220-430 ms at chunk 0, ~46k kernel launches per
 call; connectivity f32 IPM usable 1.0000, 1.9-4.2 s; HYBRID_PROD certified
-0.987-0.989, 0.74-1.55 s; closed loop 0.6-1.3 s per step, solver success
-0.99, instance_success 0.0 (the JAX package flies these random instances to
+0.987-0.989, 0.74-1.55 s; closed loop solver success 0.99,
+instance_success 0.0 (the JAX package flies these random instances to
 the same places); the dense ADMM ~10 250 launches a solve, 240-390 ms on the
 fov flagship QPs (converged 0.17, primal residual <= 0.05: 0.47) and 116-220
 ms on the cbf-fov QPs (converged 0.42); the dense IMPC step usable 0.726,
@@ -271,7 +265,7 @@ lanes, all max-iter at the oracle.
 phases above, 343-573 s with the slice-6 phases, 494-510 s with the last
 modules' phases, 616 s with the cluster kernel's before the CBF-only loops
 were cut to 30 steps, 364 s after; 400-500 s of phases with slice 10's,
-362 s with slice 12's);
+362 s with slice 12's; 284 s after the by-name rows went);
 every phase logs its wall seconds.
 """
 
@@ -315,6 +309,7 @@ from mpc_cbf_torch.utils import config as cfgmod
 from mpc_cbf_torch.utils.checkpoint import Checkpointer, checkpointed_rollout
 from mpc_cbf_torch.utils.instances import circle_rotate_instance, random_instance
 from mpc_cbf_torch.utils.metrics import instance_success
+from portbench.roofline_k3 import k3_bound_s
 
 DEV = torch.device("cuda")
 F32 = torch.float32
@@ -349,7 +344,7 @@ TEAM_FOV_RINGS = {40: 19, 64: 8, 96: 1, 128: 4, 256: 1, 400: 1}
 CHUNK = 256                                  # the auto lane_chunk of the 400-agent lane
 #: rows timed alone, at shapes no phase of the main path launches (the log and
 #: PERF.md keep them; the kernels line lists what the main path ran)
-ALONE = ("cluster_fov256", "tiled_fov", "folded_connectivity", "folded_lambda2")
+ALONE = ("cluster_fov256",)
 #: teams past every register layout: the largest fov team and connectivity team
 #: every kernel must hold (coverage)
 LARGEST_TEAM = 512
@@ -375,11 +370,6 @@ SOURCES = {"tiled": "mpc_cbf_torch/csrc/structured_admm_tiled.cu",
 #: cluster-wide): a count read from the code, printed beside the measured
 #: times in the log only
 BARRIERS = {"generic": 3, "folded": 3, "cluster": 4}
-# the card's peaks, NVIDIA's H100 SXM data sheet at 700 W: float32 outside the
-# tensor cores, float64 on the tensor cores (the kernels run their
-# mma.sync.m8n8k4.f64), dense TF32 on the tensor cores (the tiled kernel's
-# 3xTF32 products), HBM3
-PEAK_F32, PEAK_F64, PEAK_TF32, PEAK_BYTES = 67e12, 67e12, 495e12, 3.35e12
 SWARM_PHASES = {"connectivity": (50, 50, 50, 50),     # StructuredConfig(iters=100), cold and warm
                 "fov": (550, 50, 150, 50)}            # iters=600, iters_tail=200
 RUN_SIM_PHASES = (150, 50, 150, 50)                   # StructuredConfig(), run_sim's ADMM
@@ -389,49 +379,6 @@ def reset_counts() -> None:
     KERNEL.launches = 0
     KERNEL.launches_by_variant = dict.fromkeys(fused_admm.VARIANTS, 0)
     KERNEL.launches_by_layout = {}
-
-
-def bound(B: int, n: int, m_s: int, m_d: int, phases) -> tuple:
-    """(ms, "bytes" or "operations"): the least time the card could take for
-    one launch per entry of ``phases`` (iterations each) on B lanes, for the
-    operand the shape takes (fused_admm.takes_wk). The operations are the
-    fewest a known form of the loop needs. The Woodbury form (the tiled
-    kernel's shapes; the TPU kernel's form): per lane and iteration
-    [A_s; A_d]'r, A_d S and [A_s; A_d] xt in float32, Ms_inv RHS and WK t in
-    float64; or, the smaller count, folded into C = (I - WK A_d) Ms_inv inside
-    the launch (n m_d n + n^3 float64 multiply-adds a lane), which leaves
-    [A_s; A_d]'r and [A_s; A_d] xt in float32 (2 m n) and C RHS in float64
-    (n^2). The C form (every other shape): the caller factors C, so a launch
-    does only the latter, and reads a float64 C [n, n] a lane in place of WK
-    and no Ms_inv. Either form may take its two products with the shared A_s
-    (A_s' r_s and A_s xt, 2 m_s n multiply-adds an iteration) as 3xTF32 on the
-    tensor cores across the lanes (the tiled kernel's form since it was
-    redesigned for them): 3 x 2 x 2 m_s n operations at the dense TF32 rate,
-    beside the lane's own products with A_d on the float32 pipe (3 m_d n
-    multiply-adds in the Woodbury form, 2 m_d n in the C form) and the
-    float64 ones. float32, float64 and the TF32 tensor cores run at their own
-    peaks on pipes of their own, so the slowest sets the time of a form, and
-    the bound is the fastest form; every launch reads each input once and
-    writes each output once."""
-    m, its, launches = m_s + m_d, sum(phases), len(phases)
-    folded = max(its * 2 * 2 * m * n / PEAK_F32,
-                 (its * 2 * n * n + launches * 2 * (n * m_d * n + n ** 3)) / PEAK_F64)
-    tf32 = its * 3 * 2 * 2 * m_s * n / PEAK_TF32       # the shared products, 3xTF32
-    per_lane = 4 * (2 * n + 4 * m_s + 5 * m_d + n * m_d) + 4 * (n + 2 * m)
-    shared = 4 * (m_s * n + m_s)
-    if fused_admm.takes_wk(n, m_s, m_d):
-        written = max(its * 2 * (2 * m * n + m_d * n) / PEAK_F32,
-                      its * 2 * (n * n + n * m_d) / PEAK_F64)
-        tensor = max(tf32, its * 2 * 3 * m_d * n / PEAK_F32,
-                     its * 2 * (n * n + n * m_d) / PEAK_F64)
-        ops = B * min(written, folded, tensor)
-        per_lane, shared = per_lane + 4 * n * m_d, shared + 4 * n * n
-    else:
-        tensor = max(tf32, its * 2 * 2 * m_d * n / PEAK_F32, its * 2 * n * n / PEAK_F64)
-        ops = B * min(max(its * 2 * 2 * m * n / PEAK_F32, its * 2 * n * n / PEAK_F64), tensor)
-        per_lane += 8 * n * n
-    moved = launches * (B * per_lane + shared) / PEAK_BYTES
-    return max(ops, moved) * 1e3, "operations" if ops >= moved else "bytes"
 
 
 def launch_lanes(shapes: dict, batch: int) -> int:
@@ -527,15 +474,6 @@ def _phase_inputs(B: int, seed: int, shapes: tuple, operand: str | None) -> tupl
     return tuple(torch.from_numpy(a).to(DEV) for a in arrays)
 
 
-def by_name(variant: str, shapes: dict):
-    """(operand, plain twin) of a kernel launched by name at these shapes: WK
-    and the Woodbury form's loop for tiled, else C and the C form's loop (the
-    twin of the shape where the shape takes that form)."""
-    if variant == "tiled":
-        return "wk", fused_admm.woodbury_iterations_ref
-    return "c", fused_admm.folded_iterations_ref
-
-
 def max_dev(out_k, out_t, what: str) -> float:
     err = 0.0
     for name, k, t in zip(("x", "zs", "zd", "ys", "yd"), out_k, out_t):
@@ -551,15 +489,12 @@ def max_dev(out_k, out_t, what: str) -> float:
 def check_kernel(iters: int = 40) -> dict:
     """Every kernel variant against the twin; returns the max abs error of
     each row of the kernels record."""
-    cases = [  # (row of the record, what, shapes, lanes, kernel launched by name or None)
+    cases = [  # (row of the record, what, shapes, lanes, generic or cluster by name, or None)
         # the fov flagship, the main path: the folded kernel (one lane a block, the lane's C),
-        # also for the step's longest phase; the tiled kernel there by name, on WK
+        # also for the step's longest phase
         ("folded_fov", "fov", FOV_SHAPES, 1001, None),
         ("folded_fov", "fov, 3 lanes", FOV_SHAPES, 3, None),
         ("folded_fov", "fov, the step's longest phase", FOV_SHAPES, 1001, None, max(PHASES)),
-        ("tiled_fov", "fov through the tiled kernel", FOV_SHAPES, 1001, "tiled"),
-        ("tiled_fov", "fov through the tiled kernel, fewer lanes than a block", FOV_SHAPES, 3,
-         "tiled"),
         # the connectivity shapes: the tiled kernel's tensor-core loop (32 lanes a block)
         ("tiled_connectivity", "connectivity", CONN_SHAPES, 1001, None),
         ("tiled_connectivity", "connectivity, fewer lanes than a block", CONN_SHAPES, 3, None),
@@ -581,11 +516,6 @@ def check_kernel(iters: int = 40) -> dict:
          LAMBDA2_SHAPES, 3, None),
         ("tiled_lambda2", "connectivity with the λ₂/CLF rows, the step's longest phase",
          LAMBDA2_SHAPES, 1001, None, max(PHASES)),
-        # the folded kernel by name at the shapes that take the tiled one (timed beside it)
-        ("folded_connectivity", "connectivity through the folded kernel", CONN_SHAPES, 1001,
-         "folded"),
-        ("folded_lambda2", "connectivity with the λ₂/CLF rows through the folded kernel",
-         LAMBDA2_SHAPES, 1001, "folded"),
         *(("generic_sweep_r%d" % R, f"sweep connectivity team of {R}", sweep_shapes(R),
            SWEEP_SEEDS * R, None) for R in SWEEP_SIZES),
         ("generic_sweep_r10", "sweep connectivity team of 10, a cold phase",
@@ -645,9 +575,9 @@ def check_kernel(iters: int = 40) -> dict:
             if took != [row.split("_")[0]]:
                 raise AssertionError(f"{what}: launched {took}, expected the {row} kernel")
             took += list(KERNEL.launches_by_layout)   # the cluster kernel's layout
-        else:                                 # a kernel launched by name
-            operand, twin = by_name(variant, shapes)
-            args = phase_inputs(B, seed=0, shapes=shapes, operand=operand)
+        else:                                 # generic or cluster by name, on C
+            twin = fused_admm.folded_iterations_ref
+            args = phase_inputs(B, seed=0, shapes=shapes, operand="c")
             out_k = fused_admm.launch_variant(fused_admm._lib(), variant, args, iters=n_it, **KW)
             took = [variant]
         out_t = twin(*args, iters=n_it, **KW)
@@ -705,8 +635,8 @@ def coverage() -> None:
     counts = {v: sum(fused_admm.VARIANTS[c] == v for c in took.values())
               for v in fused_admm.VARIANTS}
     log(f"coverage: all {len(teams)} shapes (fov 2-{LARGEST_TEAM} agents, connectivity "
-        f"2-{LARGEST_TEAM} robots, the 3 tiled shapes) take a kernel: {counts}; the tiled "
-        f"kernel exactly the WK shapes {fused_admm.TILED_SHAPES}")
+        f"2-{LARGEST_TEAM} robots, the {len(fused_admm.TILED_SHAPES)} tiled shapes) take a "
+        f"kernel: {counts}; the tiled kernel exactly the WK shapes {fused_admm.TILED_SHAPES}")
 
 
 def bound_text(b_ms: float, k_ms: float) -> str:
@@ -739,38 +669,31 @@ def per_iter_text(ms: float, its: int, mhz: float, variant: str) -> str:
             + (f" ({bars} barriers in the source)" if bars else ""))
 
 
-def time_phases(what: str, shapes, B: int, phases=PHASES, variant: str | None = None,
-                reps: int = 5) -> dict:
-    """Device ms of the kernel (the variant the shape takes, or ``variant``
-    launched by name) and the twin per rho phase length at B lanes, beside
-    the bound; for a C-form kernel also the C build of one phase
+def time_phases(what: str, shapes, B: int, phases=PHASES, reps: int = 5) -> dict:
+    """Device ms of the kernel the shape takes and the twin per rho phase
+    length at B lanes, beside the loop's bound (``k3_bound_s``); for a
+    C-form kernel also the C build of one phase
     (StructuredQPOperator.folded_c: the float64 product, its Cholesky and two
     triangular solves, library calls) on the same lanes, for the tiled kernel
     the Woodbury build (StructuredQPOperator.woodbury: two batched products
     and an [m_d, m_d] inverse). Returns the sums over ``phases``: the
     launches one control step makes on B lanes."""
-    if variant is None:
-        operand, twin = None, fused_admm.structured_admm_iterations_ref
-    else:
-        operand, twin = by_name(variant, shapes)
-    args = phase_inputs(B, seed=1, shapes=shapes, operand=operand)
-    lib = fused_admm._lib()
-    launch = (lambda kw: KERNEL(*args, **kw)) if variant is None else \
-        (lambda kw: fused_admm.launch_variant(lib, variant, args, **kw))
+    twin = fused_admm.structured_admm_iterations_ref
+    args = phase_inputs(B, seed=1, shapes=shapes)
     per = {}
     for iters in sorted(set(phases)):
         kw = dict(iters=iters, **KW)
-        k_ms = cuda_ms(lambda: launch(kw), reps=reps)
+        k_ms = cuda_ms(lambda: KERNEL(*args, **kw), reps=reps)
         t_ms = cuda_ms(lambda: twin(*args, **kw), reps=min(reps, 2))
-        b_ms, _ = bound(B, **shapes, phases=(iters,))
+        b_ms = k3_bound_s(B, **shapes, phases=(iters,)) * 1e3
         per[iters] = (k_ms, t_ms)
         log(f"{what}, phase of {iters:3d} iterations at B={B}: kernel {k_ms:.3f} ms, "
             f"{bound_text(b_ms, k_ms)}, plain twin {t_ms:.3f} ms")
     k_sum, t_sum = (sum(per[i][j] for i in phases) for j in (0, 1))
-    b_ms, by = bound(B, **shapes, phases=phases)
+    b_ms = k3_bound_s(B, **shapes, phases=phases) * 1e3
     mhz = sm_clock_mhz()                      # read right after the window
     its = sum(phases)
-    variant = variant or kernel_of_shape(shapes)
+    variant = kernel_of_shape(shapes)
     c_ms = wk_ms = None
     op = structured_mod.StructuredQPOperator
     if args[10].dtype == torch.float64:       # the C form: one build a phase, as _solve makes it
@@ -778,13 +701,11 @@ def time_phases(what: str, shapes, B: int, phases=PHASES, variant: str | None = 
         c_ms = len(phases) * cuda_ms(lambda: op.folded_c(M_s, args[6], args[9]), reps=2)
     else:                                     # the Woodbury form
         wk_ms = len(phases) * cuda_ms(lambda: op.woodbury(args[0], args[6], args[9]), reps=2)
-    out = dict(ms=k_sum, plain_ms=t_sum, bound_ms=b_ms, bound_by=by, lanes=B, phases=list(phases),
+    out = dict(ms=k_sum, plain_ms=t_sum, bound_ms=b_ms, lanes=B, phases=list(phases),
                us_per_iter=k_sum * 1e3 / its, clocks_per_iter=k_sum * 1e3 / its * mhz,
                c_build_ms=c_ms, wk_build_ms=wk_ms)
     msg = (f"{what}, {len(phases)} phases {phases} at B={B}: kernel {k_sum:.3f} ms, "
-           f"{bound_text(b_ms, k_sum)}, by {by} (peaks {PEAK_F32 / 1e12:.0f} / "
-           f"{PEAK_F64 / 1e12:.0f} / {PEAK_TF32 / 1e12:.0f} TFLOP/s float32 / float64 / TF32, "
-           f"{PEAK_BYTES / 1e12:.2f} TB/s); twin {t_sum:.3f} ms; an iteration "
+           f"{bound_text(b_ms, k_sum)}; twin {t_sum:.3f} ms; an iteration "
            f"{per_iter_text(k_sum, its, mhz, variant)}"
            + (f"; the C builds of the {len(phases)} phases (folded_c) {c_ms:.3f} ms"
               if c_ms is not None else
@@ -888,37 +809,10 @@ def check_result(res, batch: int) -> float:
     return float(res.success.float().mean())
 
 
-def woodbury_step(simpc, inputs):
-    """One call of ``simpc`` with the Woodbury WK and the tiled kernel launched
-    by name (not counted) in place of the route of its shapes: the fov
-    flagship's form and kernel before it took the folded kernel's C. Returns
-    (result, wall seconds)."""
-    ops = [op for op in (simpc.op_qp, simpc.op_qp_tail) if op is not None]
-    lib = fused_admm._lib()
-
-    def tiled(*args, iters, sigma, alpha):
-        return fused_admm.launch_variant(lib, "tiled", args, iters=iters, sigma=sigma,
-                                         alpha=alpha)
-    routed = structured_mod.structured_admm_iterations
-    try:
-        structured_mod.structured_admm_iterations = tiled
-        for op in ops:
-            op.wk_form = True
-        simpc.optimize_batch(*inputs)         # warm-up
-        t0 = sync_clock()
-        res = simpc.optimize_batch(*inputs)
-        return res, sync_clock() - t0
-    finally:
-        structured_mod.structured_admm_iterations = routed
-        for op in ops:
-            op.wk_form = fused_admm.takes_wk(op.n, op.m_s, op.m_d)
-
-
 def fov_main_path(batch: int = 8192):
     """The fov flagship through its route (the folded kernel on the lane's C,
-    4 launches a call, asserted), beside the same step through the tiled
-    kernel on WK (its usable rate bars the route's: not below it) and
-    through the plain loop (within 0.01)."""
+    4 launches a call, asserted), beside the same step through the plain
+    loop (usable rates within 0.01)."""
     ctrl, inputs = bench_problem("fov", batch)
     simpc = admm_stepper(ctrl)
     variant = kernel_of_shape(FOV_SHAPES)
@@ -953,15 +847,6 @@ def fov_main_path(batch: int = 8192):
     stage_split(simpc, inputs)
     profile_call(step)
     before = KERNEL.launches
-    res_w, t_w = woodbury_step(simpc, inputs)
-    usable_w = check_result(res_w, batch)
-    log(f"fov main path, {batch} lanes, the Woodbury WK and the tiled kernel by name: usable "
-        f"{usable_w:.4f}, {t_w * 1e3:.2f} ms; success flags differ from the route's on "
-        f"{int((res_k.success != res_w.success).sum())} lanes")
-    if usable < usable_w:
-        raise AssertionError(f"usable rates: the route ({variant}) {usable:.4f}, the tiled "
-                             f"kernel on WK {usable_w:.4f} (bar: not below it)")
-
     plain = control_step(ctrl, inputs, use_kernel=False)
     plain()
     t0 = sync_clock()
@@ -1593,27 +1478,22 @@ def stamp_steps(sim) -> list:
 
 def closed_loop(robots: int = 8, scenarios: int = 1024, steps: int = 10) -> None:
     """MultiAgentSim rollout of fov teams with the f32 IPM, all scenarios
-    as one batch of robots x scenarios lanes per step."""
+    as one batch of robots x scenarios lanes per step: every trajectory
+    finite (not timed: the benchmark's fov8.fleet times this traffic)."""
     tasks = [random_instance(robots, seed=s)["tasks"] for s in range(scenarios)]
     so = np.array([t["so"] for t in tasks])
     sf = np.array([t["sf"] for t in tasks])
     T = lambda a: torch.as_tensor(a, dtype=F32, device=DEV)
     sim = MultiAgentSim(fov_controller(robots - 1), robots, structured=True,
                         solver_cfg=IPM_F32_ENTRY)
-    stamps = stamp_steps(sim)
-    t0 = sync_clock()
     res = sim.rollout(State(T(so), T(np.zeros_like(so))), T(sf), steps)
-    stamps.append(sync_clock())
-    per_step = np.diff(stamps)
     traj = res.traj_pos.cpu().numpy()                     # [S, T, A, 3]
     if not (np.isfinite(traj).all() and np.isfinite(res.traj_vel.cpu().numpy()).all()):
         raise AssertionError("closed loop: a trajectory is not finite")
     passed = [instance_success(traj[s].transpose(1, 0, 2), sf[s])[0] for s in range(scenarios)]
     log(f"closed loop, fov f32 IPM, {robots} robots x {scenarios} scenarios = "
-        f"{robots * scenarios} lanes, {steps} steps: {(stamps[-1] - t0):.2f} s in all, "
-        f"median {np.median(per_step) * 1e3:.2f} ms per step "
-        f"({per_step.min() * 1e3:.2f}..{per_step.max() * 1e3:.2f}); mean per-step solver "
-        f"success {float(res.success.float().mean()):.4f}; instance_success "
+        f"{robots * scenarios} lanes, {steps} steps: every trajectory finite; mean per-step "
+        f"solver success {float(res.success.float().mean()):.4f}; instance_success "
         f"{np.mean(passed):.4f} of scenarios")
 
 
@@ -2168,14 +2048,9 @@ def main() -> int:
 
     def time_kernels() -> dict:
         return {
-            # the fov flagship's route (folded, the lane's C) and the tiled kernel there by
-            # name (WK); the folded kernel by name beside the tiled one at the connectivity shapes
+            # the fov flagship's route (folded, the lane's C) and the connectivity shapes' (tiled)
             "folded_fov": time_phases("fov", FOV_SHAPES, 8192),
-            "tiled_fov": time_phases("fov through the tiled kernel", FOV_SHAPES, 8192,
-                                     variant="tiled"),
             "tiled_connectivity": time_phases("connectivity", CONN_SHAPES, 32768),
-            "folded_connectivity": time_phases("connectivity through the folded kernel",
-                                               CONN_SHAPES, 32768, variant="folded"),
             # at the lanes and phase lengths the 32-agent steps below give a launch:
             # all 4096 lanes (the fov step's auto lane_chunk holds them all)
             "folded_swarm_connectivity": time_phases(
@@ -2187,8 +2062,6 @@ def main() -> int:
             # the 4-robot connectivity step with the λ₂/CLF rows
             "tiled_lambda2": time_phases("connectivity with the λ₂/CLF rows", LAMBDA2_SHAPES,
                                          32768),
-            "folded_lambda2": time_phases("connectivity with the λ₂/CLF rows through the folded "
-                                          "kernel", LAMBDA2_SHAPES, 32768, variant="folded"),
             # the generic kernel, at the lanes a launch gets from run_sim's 3-robot team
             # (the command-line phase) and from the 24-agent step below
             "generic": time_phases("run_sim's 3-robot connectivity", RUN_SIM_CONN_SHAPES, 3,
@@ -2224,16 +2097,6 @@ def main() -> int:
                 phases=RUN_SIM_PHASES) for R in SWEEP_SIZES},
         }
     rows = phase("kernels timed alone", time_kernels)
-    # the fov flagship's route: its kernel and C builds take less device time than the tiled
-    # kernel and the Woodbury builds of the same four phases
-    route, wk = rows["folded_fov"], rows["tiled_fov"]
-    log(f"fov flagship, 8192 lanes, four phases: folded {route['ms']:.3f} + C builds "
-        f"{route['c_build_ms']:.3f} = {route['ms'] + route['c_build_ms']:.3f} ms; tiled "
-        f"{wk['ms']:.3f} + Woodbury builds {wk['wk_build_ms']:.3f} = "
-        f"{wk['ms'] + wk['wk_build_ms']:.3f} ms")
-    if route["ms"] + route["c_build_ms"] >= wk["ms"] + wk["wk_build_ms"]:
-        raise AssertionError("the fov flagship's route (folded, C) is not faster than the tiled "
-                             "kernel on WK")
     _phase_inputs.cache_clear()
     torch.cuda.empty_cache()
     rows["folded_fov"]["launches"] = phase("fov ADMM step", fov_main_path)
@@ -2299,7 +2162,7 @@ def main() -> int:
         "source": SOURCES[row.split("_")[0]],
         "replaces": "mpc_cbf_tpu/ops/qp/pallas_admm.py:35",
         "launches": r["launches"], "max_abs_err": errs[row], "ms": r["ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "library_ms": None, "lanes": r["lanes"], "phases": r["phases"],
         "us_per_iter": r["us_per_iter"], "clocks_per_iter": r["clocks_per_iter"],
         "c_build_ms": r["c_build_ms"], "wk_build_ms": r["wk_build_ms"]}

@@ -26,12 +26,12 @@
 // stay on chip (every operand is read from device memory once a launch and
 // then used in each of the 32 to 550 iterations; the count is worked out in
 // structured_admm_tiled.cu), and the bytes of the rows where they do not.
-// Four kernels, chosen from the shape alone by structured_admm_variant():
+// Four kernels, chosen from the shape alone by structured_admm_variant();
+// every compiled instance of tiled and folded is a shape that takes it:
 //   tiled     structured_admm_tiled.cu: compiled per shape (connectivity,
-//             λ₂/CLF connectivity; the fov flagship by name only, on an
-//             earlier loop), 32 lanes a block, the two products with the
-//             shared A_s on the TF32 tensor cores (3xTF32) with the rows'
-//             state in the registers that receive their sums. Takes WK.
+//             λ₂/CLF connectivity), 32 lanes a block, the two products with
+//             the shared A_s on the TF32 tensor cores (3xTF32) with the
+//             rows' state in the registers that receive their sums. Takes WK.
 //   folded    structured_admm_folded.cu: compiled per shape (the fov flagship,
 //             32-agent fov and connectivity), one lane a block, [A_s; A_d]
 //             and the rows' state in registers.
@@ -56,9 +56,7 @@
 
 // The kernel a shape takes: tiled or folded where one takes it, else generic
 // where one of its layouts holds the shape, else cluster; kNone where none
-// does. The tiled shapes are the ones that take WK (fused_admm.TILED_SHAPES);
-// tiled's fov instance runs by name only, and folded's instances at the
-// tiled shapes run by name only (tiled comes first).
+// does. The tiled shapes are the ones that take WK (fused_admm.TILED_SHAPES).
 extern "C" int structured_admm_variant(int n, int m_s, int m_d) {
   if (structured_admm_tiled_has(n, m_s, m_d)) return kTiled;
   if (structured_admm_folded_has(n, m_s, m_d)) return kFolded;
@@ -70,8 +68,10 @@ extern "C" int structured_admm_variant(int n, int m_s, int m_d) {
 // Launches one rho phase on `stream` of `device` (arrays as in AdmmArgs; WK
 // for the tiled kernel, C for the others, the other pointer null).
 // variant < 0: the kernel of structured_admm_variant(); else that kernel,
-// for measurements and tests. Returns a cudaError_t (0 = launched;
-// cudaErrorInvalidValue for the operand the kernel does not take). The
+// for measurements and tests (generic and cluster hold any shape that fits
+// them; tiled and folded only their compiled shapes). Returns a cudaError_t
+// (0 = launched; cudaErrorInvalidValue for the operand the kernel does not
+// take, or a shape it has no instance of). The
 // calling thread's current device is left as it was found.
 extern "C" int structured_admm_launch(
     const float* Ms_inv, const float* A_s, const float* rho_s, const float* q,

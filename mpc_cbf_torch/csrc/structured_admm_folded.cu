@@ -54,8 +54,6 @@
 //              12 KB: four blocks an SM, 4096 lanes in 8 waves (7.76)
 //   Flagship   256 threads (6 x warps), 32 x 8 tiles of 7 x 6, 80 registers,
 //              18 KB: three blocks an SM, 8192 lanes in 21 waves (20.69)
-//   Conn, ConnLambda2: the connectivity shapes, by name only (four blocks an
-//              SM)
 // Where several blocks share an SM their waits and meetings hide each
 // other's. One lane a block: a lane never shares a block, so a NaN lane
 // cannot reach another lane. scripts/admm_kernel_sweep.py --swarm-fov,
@@ -369,14 +367,11 @@ int launch(const AdmmArgs& a, cudaStream_t stream) {
 }
 
 // The instantiations: the 32-agent fov and connectivity control steps and the fov flagship,
-// which take this kernel; the connectivity and λ₂/CLF connectivity shapes, which take the
-// tiled kernel's Woodbury form and run this one by name only (for measurements and tests).
+// each a shape that takes this kernel (a shape of the tiled kernel's is taken there first).
 //                               N   MS   MD    T   RG  CG  P
 using SwarmFov = FoldedShape<67, 151, 372, 640, 80, 8, 4>;
 using SwarmConn = FoldedShape<36, 126, 62, 192, 24, 8, 4>;
 using Flagship = FoldedShape<43, 127, 84, 256, 32, 8, 4>;
-using Conn = FoldedShape<36, 126, 6, 192, 24, 8, 4>;
-using ConnLambda2 = FoldedShape<36, 126, 14, 192, 24, 8, 4>;
 
 template <class S>
 bool is_shape(int n, int m_s, int m_d) { return n == S::N && m_s == S::MS && m_d == S::MD; }
@@ -385,16 +380,13 @@ bool is_shape(int n, int m_s, int m_d) { return n == S::N && m_s == S::MS && m_d
 
 bool structured_admm_folded_has(int n, int m_s, int m_d) {
   return is_shape<SwarmFov>(n, m_s, m_d) || is_shape<SwarmConn>(n, m_s, m_d) ||
-         is_shape<Flagship>(n, m_s, m_d) || is_shape<Conn>(n, m_s, m_d) ||
-         is_shape<ConnLambda2>(n, m_s, m_d);
+         is_shape<Flagship>(n, m_s, m_d);
 }
 
 int structured_admm_folded_launch(const AdmmArgs& a, cudaStream_t stream) {
   if (is_shape<SwarmFov>(a.n, a.m_s, a.m_d)) return launch<SwarmFov>(a, stream);
   if (is_shape<SwarmConn>(a.n, a.m_s, a.m_d)) return launch<SwarmConn>(a, stream);
   if (is_shape<Flagship>(a.n, a.m_s, a.m_d)) return launch<Flagship>(a, stream);
-  if (is_shape<Conn>(a.n, a.m_s, a.m_d)) return launch<Conn>(a, stream);
-  if (is_shape<ConnLambda2>(a.n, a.m_s, a.m_d)) return launch<ConnLambda2>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -18,8 +18,10 @@ the small fov teams), and ``cluster`` for the larger lanes
 blocks push their sums into each other's shared memory; the rows of [A_s;
 A_d] in the blocks' registers where they fit, else streamed from device
 memory once an iteration).
-``launch_variant`` runs a kernel by name, to time or check it at a shape
-that takes another. On CPU tensors it runs the twin
+Every compiled instance of ``tiled`` and ``folded`` is a shape that takes
+it. ``launch_variant`` runs a kernel by name: ``generic`` and ``cluster`` at
+any shape they hold (to time or check them at another kernel's shape),
+``tiled`` and ``folded`` at their own shapes only. On CPU tensors it runs the twin
 ``structured_admm_iterations_ref``, which is the scan body of
 ``mpc_cbf_tpu/ops/qp/structured.py:442-463`` as a Python loop. Any other
 CUDA input raises: there is no silent fallback.
@@ -57,8 +59,8 @@ Tensor = torch.Tensor
 VARIANTS = ("tiled", "folded", "generic", "cluster")
 #: (n, m_s, m_d) of the shapes that take the tiled kernel of
 #: csrc/structured_admm_tiled.cu: connectivity, and connectivity with the
-#: λ₂/CLF rows. Their loop takes WK; every other shape takes C (the fov
-#: flagship too, whose tiled instance runs by name only).
+#: λ₂/CLF rows, the kernel's only instances. Their loop takes WK; every
+#: other shape takes C.
 TILED_SHAPES = ((36, 126, 6), (36, 126, 14))
 State5 = Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]
 
@@ -98,8 +100,8 @@ def folded_iterations_ref(
 ) -> State5:
     """The twin's loop in the C form at any shape: xt = C RHS in float64 with
     the lane's C [B, n, n] (``Ms_inv`` is not read). The twin of every shape
-    outside ``TILED_SHAPES``; tests and measurements also hold a C-form kernel
-    launched by name at a tiled shape against it."""
+    outside ``TILED_SHAPES``, and of ``generic`` or ``cluster`` launched by
+    name at any shape."""
     dt, hi = qb.dtype, torch.float64
     C = C.to(hi)
     return _loop(lambda RHS: torch.einsum("bij,bj->bi", C, RHS.to(hi)).to(dt),
@@ -113,8 +115,7 @@ def woodbury_iterations_ref(
 ) -> State5:
     """The twin's loop in the Woodbury form at any shape: xt = S - WK (Ad S),
     S = Ms_inv RHS, the products and the difference in float64. The twin of
-    ``TILED_SHAPES``; tests and measurements also hold the tiled kernel
-    launched by name at another shape against it."""
+    ``TILED_SHAPES``, the shapes of the tiled kernel."""
     dt, hi = qb.dtype, torch.float64
     Ms_inv_hi, WK_hi = Ms_inv.to(hi), WK.to(hi)
 
@@ -195,8 +196,10 @@ def launch_variant(lib: ctypes.CDLL, variant: str, args, *, iters: int, sigma: f
     for the operand: WK for ``tiled``, the float64 C for the others) and
     return the new state. It counts nothing. The package calls it from
     ``structured_admm_iterations`` alone, with the kernel of the shape;
-    tests and measurements call it to hold one kernel against another on
-    a shape that would take a different one."""
+    tests and measurements call it to run ``generic`` or ``cluster`` at a
+    shape that takes another kernel. ``tiled`` and ``folded`` have
+    instances at their own shapes only: elsewhere the launch raises
+    ``RuntimeError``."""
     qb, A_sb, Ad, W = args[3], args[1], args[6], args[10]
     (B, n), m_s, m_d = qb.shape, A_sb.shape[0], Ad.shape[1]
     wk = variant == "tiled"

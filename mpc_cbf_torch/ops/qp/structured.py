@@ -33,7 +33,8 @@ Left out on purpose (TPU-only in the JAX package):
 - ``_chunked_inv`` / ``inv_chunk``: a VMEM workaround for XLA's blocked
   LU; the batched ``torch.linalg.inv_ex`` here has no such limit;
 - ``pallas_block`` / ``pallas_interpret`` and the backend, x64 and VMEM
-  gate of ``_solve``: replaced by one field, ``use_kernel``.
+  gate of ``_solve``: replaced by one boolean, ``use_kernel`` (False: the
+  plain PyTorch loop on any device).
 
 ``solve_polished`` runs ``solve`` (the kernel on the card) and then the
 float64 active-set polish of ``polish.py`` on the same device.
@@ -78,11 +79,11 @@ class StructuredConfig:
     iters_tail: Optional[int] = None
     alpha: float = 1.6
     eps_pri: float = 5e-3     # f32 bar (relative)
-    # iteration loop: None = the CUDA kernel for CUDA float32 tensors (a
+    # iteration loop: True = the CUDA kernel for CUDA float32 tensors (a
     # CUDA tensor of another dtype raises) and the plain PyTorch loop for
     # CPU tensors; False = the plain loop on any device (the kernel's
-    # reference); True = as None
-    use_kernel: Optional[bool] = None
+    # reference)
+    use_kernel: bool = True
     # lanes per chunk for the WHOLE solve (a Python loop over lane slices,
     # the last one may be shorter). The C form's precompute (folded_c) holds
     # per lane a float64 copy of A_d [m_d, n] and four float64 [n, n]
@@ -360,8 +361,7 @@ class StructuredQPOperator:
 
         # the raw y carries over unchanged at the phase switch (measured
         # better than rescaling, see mpc_cbf_tpu/ops/qp/structured.py)
-        loop = structured_admm_iterations_ref if cfg.use_kernel is False \
-            else structured_admm_iterations
+        loop = structured_admm_iterations if cfg.use_kernel else structured_admm_iterations_ref
         for (n_it, Ms_inv, rho_s, rho_d_base), M_s in zip(self.phases, self.M_s):
             rho_d = torch.where(inactive_d, torch.full_like(e_d, 1e-12),
                                 torch.full_like(e_d, rho_d_base))

@@ -1,7 +1,6 @@
 """Time other block layouts of the structured-ADMM kernels on the card.
 
-    python3 scripts/admm_kernel_sweep.py [--fov LAYOUT ...] [--conn LAYOUT ...]
-                                         [--lambda2 LAYOUT ...]
+    python3 scripts/admm_kernel_sweep.py [--conn LAYOUT ...] [--lambda2 LAYOUT ...]
                                          [--swarm-conn LAYOUT ...] [--swarm-fov LAYOUT ...]
                                          [--folded-at fov|conn|lambda2 LAYOUT ...]
                                          [--generic LAYOUT ...] [--generic-team24 LAYOUT ...]
@@ -10,36 +9,36 @@
                                          [--stage-clocks [SHAPE ...]] [--timing-check]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU and nvcc.
-The package's kernel sources carry one layout per shape: the ``Shape<...>``
-lines at the end of mpc_cbf_torch/csrc/structured_admm_tiled.cu (fov,
-connectivity, connectivity with the λ₂/CLF rows) and the ``FoldedShape<...>``
+The package's kernel sources carry one layout per shape: the ``TcShape<...>``
+lines at the end of mpc_cbf_torch/csrc/structured_admm_tiled.cu
+(connectivity, connectivity with the λ₂/CLF rows) and the ``FoldedShape<...>``
 lines at the end of csrc/structured_admm_folded.cu (32-agent fov, 32-agent
-connectivity, the fov flagship). A LAYOUT of the tiled kernel at the
-connectivity shapes (--conn, --lambda2: its tensor-core loop, ``TcShape``) is
-L,RP,RG,CG (lanes a block, row parts a lane group of 16, the grid of
-register tiles A_d is cut into); at the fov shape
-(--fov: the earlier loop, ``Shape``) G,L,TPL (groups a block, lanes a group,
-threads a lane) or G,L,TPL,RG,CG; one of the folded kernel is
-T,RG,CG,P (threads a block, the grid of register tiles [A_s; A_d] is cut
-into, threads a row of C). Every kernel gets the operand it takes
-(random_phase_inputs: WK for tiled, the float64 C for the others) of the
-same draw, and is held to the twin of that form. Only the shapes named
-by an option are built and timed; with no option, the fov, connectivity and
-λ₂ shapes with their defaults. The i-th layout of every shape is built
+connectivity, the fov flagship). A LAYOUT of the tiled kernel (--conn,
+--lambda2: its tensor-core loop) is L,RP,RG,CG (lanes a block, row parts a
+lane group of 16, the grid of register tiles A_d is cut into); one of the
+folded kernel is T,RG,CG,P (threads a block, the grid of register tiles
+[A_s; A_d] is cut into, threads a row of C). Every kernel gets the operand
+it takes (random_phase_inputs: WK for tiled, the float64 C for the others)
+of the same draw, and is held to the twin of that form. Only the shapes
+named by an option are built and timed; with no option, the connectivity
+and λ₂ shapes with their defaults. The i-th layout of every shape is built
 together (a shorter list repeats its last): this script writes a copy of
 csrc/ with those lines changed into build/sweep/<layouts>/, compiles it with
 the package's flags, prints ptxas' registers and spills of the
 instantiations, holds the kernel against the plain twin on 256 lanes (20
 iterations) and times one rho phase of each length of a control step at the
 lanes a launch gets there (CUDA events, mean of 3 launches after a warm-up):
-150 + 50 + 32 + 32 iterations at 8192 fov lanes and 32768 connectivity
-lanes, 4 x 50 at the 4096 lanes of the 32-agent connectivity step, 550 + 50
-+ 150 + 50 at the 4096 lanes of the 32-agent fov step (one lane chunk).
+150 + 50 + 32 + 32 iterations at 32768 connectivity lanes, 4 x 50 at the
+4096 lanes of the 32-agent connectivity step, 550 + 50 + 150 + 50 at the
+4096 lanes of the 32-agent fov step (one lane chunk).
 --folded-at times the folded kernel at the fov flagship's, the
-connectivity or the λ₂/CLF connectivity shape (fov, conn or lambda2: the
-copy's ``Flagship``, ``Conn`` or ``ConnLambda2`` line of the folded source)
-with the layouts T,RG,CG,P, launched by name beside the tiled kernel of the
-same copy (at 8192 and 32768 lanes, 150 + 50 + 32 + 32 iterations). --generic times the generic
+connectivity or the λ₂/CLF connectivity shape (fov: the copy's ``Flagship``
+line of the folded source, changed; conn or lambda2: a ``FoldedShape`` line
+and its launch inserted into the copy, as the package compiles no folded
+instance at a shape that takes tiled) with the layouts T,RG,CG,P, launched
+by name beside the tiled kernel (at the fov flagship, which tiled does not
+hold, beside nothing) at 8192 and 32768 lanes, 150 + 50 + 32 + 32
+iterations. --generic times the generic
 kernel (csrc/structured_admm_generic.cu) at the sweep's team of 10 (45, 135,
 18) on 150 lanes and run_sim's 3-robot team (38, 128, 4) on 3 lanes (150 +
 50 + 150 + 50 iterations), with the copy's ``RegN64`` line (the one both
@@ -85,8 +84,7 @@ of the rows), barrier 1, RHS, barrier 2, xt = C RHS, barrier 3, the row
 sums, barrier 4, the row updates, barrier 5 (a stage the loop does not have
 counts 0); for tiled, its tensor-core loop's RHS and S = Ms_inv RHS (thread
 0 is in a RHS warp), wait 1, t and xt = S - WK t, the dynamic rows, wait 2,
-A_s xt, the shared rows' updates and A_s' r_s, wait 3 (the earlier loop, at
-the fov shape, has no markers).
+A_s xt, the shared rows' updates and A_s' r_s, wait 3.
 A LAYOUT of the generic kernel is TC,MAXW[,P[,MINB]]: GenericShape<TC, MAXW,
 P, MINB> (column slots a lane, warps a block at most, threads a row of C
 (default 4), blocks an SM for the launch bounds (default 1)). --timing-check builds
@@ -122,16 +120,15 @@ TILED, FOLDED = "structured_admm_tiled.cu", "structured_admm_folded.cu"
 GENERIC, CLUSTER = "structured_admm_generic.cu", "structured_admm_cluster.cu"
 RUN_SIM_PHASES = (150, 50, 150, 50)
 SWARM_FOV_PHASES = (550, 50, 150, 50)
-SHAPES = {"fov": Target(8192, (43, 127, 84), PHASES, "Fov", TILED, "tiled", None),
-          "conn": Target(32768, (36, 126, 6), PHASES, "Conn", TILED, "tiled", None),
+SHAPES = {"conn": Target(32768, (36, 126, 6), PHASES, "Conn", TILED, "tiled", None),
           "lambda2": Target(32768, (36, 126, 14), PHASES, "ConnLambda2", TILED, "tiled", None),
           "swarm_conn": Target(4096, (36, 126, 62), (50, 50, 50, 50), "SwarmConn", FOLDED, "folded",
                                None),
           "swarm_fov": Target(4096, (67, 151, 372), SWARM_FOV_PHASES, "SwarmFov", FOLDED,
                               "folded", None),
-          # --folded-at: the folded kernel at the fov flagship's and the connectivity shapes (their
-          # lines of the folded source), beside the tiled kernel
-          "fov_folded": Target(8192, (43, 127, 84), PHASES, "Flagship", FOLDED, "folded", "tiled"),
+          # --folded-at: the folded kernel at the fov flagship's shape (its line of the folded
+          # source) and at the connectivity shapes (a line inserted), beside the tiled kernel
+          "fov_folded": Target(8192, (43, 127, 84), PHASES, "Flagship", FOLDED, "folded", None),
           "conn_folded": Target(32768, (36, 126, 6), PHASES, "Conn", FOLDED, "folded", "tiled"),
           "lambda2_folded": Target(32768, (36, 126, 14), PHASES, "ConnLambda2", FOLDED, "folded",
                                    "tiled"),
@@ -222,8 +219,7 @@ def build(layouts: dict, defines=(), reg_shapes=()):
             if src.name != SHAPES[name].source:      # an alias may name a line of another source
                 continue
             alias = SHAPES[name].alias
-            # the numbers replaced after the shape: tiled 3 or 5 at fov (G,L,TPL[,RG,CG]), 4 at
-            # the connectivity shapes (L,RP,RG,CG)
+            # the numbers replaced after the shape: tiled's L,RP,RG,CG
             numbers = layout.count(",") + 1
             if name.startswith("stream"):            # one count of warps
                 text, n = re.subn(r"constexpr int kStreamWarps\[\] = \{[^;]*\};",
@@ -242,9 +238,7 @@ def build(layouts: dict, defines=(), reg_shapes=()):
                 text, n = re.subn(rf"using {alias} = GenericShape<[^>]*>",
                                   f"using {alias} = GenericShape<{', '.join(fields)}>", text)
             elif name.endswith("_folded"):            # the whole line: another shape
-                shape = ", ".join(map(str, SHAPES[name].shape))
-                text, n = re.subn(rf"using {alias} = FoldedShape<[^>]*>",
-                                  f"using {alias} = FoldedShape<{shape}, {layout}>", text)
+                text, n = folded_instance(text, alias, SHAPES[name].shape, layout)
             else:
                 text, n = re.subn(rf"(using {alias} = \w*Shape<\d+, \d+, \d+)"
                                   + r", \d+" * numbers, rf"\1, {layout}", text)
@@ -282,6 +276,23 @@ def build(layouts: dict, defines=(), reg_shapes=()):
         report[name] = " | ".join(ln.strip() for i in at[:1] for ln in lines[i + 1:i + 4]
                                   if "registers" in ln or "spill" in ln)
     return fused_admm.bind(ctypes.CDLL(str(lib))), report
+
+
+def folded_instance(text, alias, shape, layout):
+    """(text, lines changed): the folded source ``text`` with the instance ``alias`` of the
+    shape at the layout T,RG,CG,P: its ``FoldedShape`` line changed where the source has one,
+    else the line inserted before the instances' lookup and its launch by name added to
+    structured_admm_folded_launch (not to _has: the shape keeps the kernel it takes)."""
+    line = f"using {alias} = FoldedShape<{', '.join(map(str, shape))}, {layout}>"
+    text, n = re.subn(rf"using {alias} = FoldedShape<[^>]*>", line, text)
+    if n:
+        return text, n
+    lookup = "\ntemplate <class S>\nbool is_shape"
+    head = "int structured_admm_folded_launch(const AdmmArgs& a, cudaStream_t stream) {\n"
+    if text.count(lookup) != 1 or text.count(head) != 1:
+        return text, 0
+    branch = f"  if (is_shape<{alias}>(a.n, a.m_s, a.m_d)) return launch<{alias}>(a, stream);\n"
+    return text.replace(lookup, f"\n{line};{lookup}").replace(head, head + branch), 1
 
 
 def reg_instance(text, shape, cs, nw):
@@ -357,7 +368,6 @@ def timing_check(windows=10, reps=3):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--fov", nargs="*", help="G,L,TPL[,RG,CG]; default: 1,4,160 1,4,128 2,2,128")
     ap.add_argument("--conn", nargs="*",
                     help="L,RP,RG,CG; default: " + " ".join(TILED_DEFAULTS))
     ap.add_argument("--lambda2", nargs="*",
@@ -432,9 +442,8 @@ def main():
         stage_clocks(opt.stage_clocks or STAGE_TARGETS)
     if (opt.timing_check or opt.stage_clocks is not None) and not asked:
         return
-    if not asked:           # no option: the three shapes of the 8- and 4-robot steps
-        asked = {"fov": ["1,4,160", "1,4,128", "2,2,128"], "conn": TILED_DEFAULTS,
-                 "lambda2": TILED_DEFAULTS}
+    if not asked:           # no option: the two shapes of the 4-robot steps
+        asked = {"conn": TILED_DEFAULTS, "lambda2": TILED_DEFAULTS}
     data, beside, ref = {}, {}, {}
     for name in asked:
         B, shape = SHAPES[name].lanes, SHAPES[name].shape

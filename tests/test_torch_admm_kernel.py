@@ -16,17 +16,24 @@ makes it): the Woodbury WK at the tiled kernel's shapes, the float64 C
 elsewhere; the Pallas kernel takes WK of the same draw. The C form of the
 loop (``folded_loop``, the algebra of the ``folded`` kernel, also at the
 tiled shapes), the ``folded`` kernel's float32 summation order
-(``folded_register_loop``) and the generic kernel's three stages
-(``generic_loop``) are held to the twin and to the Pallas kernel at the same
-bar (the ``cluster``
-kernel's loops: tests/test_torch_cluster.py). On the card every kernel
-variant (tiled, folded, generic, cluster) is held to it too.
+(``folded_register_loop``, at its instances) and the generic kernel's three
+stages (``generic_loop``) are held to the twin and to the Pallas kernel at
+the same bar (the ``cluster`` kernel's loops: tests/test_torch_cluster.py).
+The twin's, the Pallas kernel's and each layout model's outputs are computed
+once a (lanes, seed, shape, operand) and shared by the tests that compare
+them (``_twin_out``, ``_pallas_out``, ``_model_out``; read only). Every
+compiled instance of ``tiled`` and ``folded`` is a shape that takes it. On
+the card every kernel variant (tiled, folded, generic, cluster) is held to
+the twin too.
 
 The cases marked ``cuda`` import no JAX, so that they also run where the
 GPU is and JAX is not (tests/conftest.py imports JAX, hence --noconftest):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_admm_kernel.py
 """
+
+import functools
+import re
 
 import numpy as np
 import pytest
@@ -76,17 +83,41 @@ def _inputs(B, seed, shape=FOV, operand=None):
     return random_phase_inputs(np.random.default_rng(seed), B, *shape, operand=operand)
 
 
+@functools.lru_cache(maxsize=None)
+def _model_out(loop, B, seed, shape, operand=None):
+    """``loop`` (the twin or a layout model) on ``_inputs(B, seed, shape,
+    operand)`` for KW's 40 iterations, computed once for the tests that
+    share it: inference tensors, which refuse an in-place write."""
+    with torch.inference_mode():
+        return loop(*map(torch.from_numpy, _inputs(B, seed=seed, shape=shape, operand=operand)),
+                    **KW)
+
+
+def _twin_out(B, seed, shape):
+    """The twin on the shape's own operand (cached, read only)."""
+    return _model_out(structured_admm_iterations_ref, B, seed, shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_out(B, seed, shape):
+    """The JAX package's Pallas kernel in interpret mode on WK of the same draw,
+    as read-only numpy arrays (cached)."""
+    import jax.numpy as jnp
+    from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
+    out = tuple(np.array(o) for o in pallas(
+        *map(jnp.asarray, _inputs(B, seed=seed, shape=shape, operand="wk")), **KW, block=128,
+        interpret=True))
+    for o in out:
+        o.flags.writeable = False
+    return out
+
+
 @pytest.mark.parametrize("B,shape", [(5, FOV), (3, FOV), (4, CONN), (3, SWARM_CONN),
                                      (6, CONN_LAMBDA2), (2, SWARM_FOV), (3, RUN_SIM_CONN),
                                      (4, SWEEP_R2), (3, SWEEP_R10), (2, TEAM24_FOV)])
 def test_twin_matches_pallas_kernel(B, shape):
-    import jax.numpy as jnp
-    from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
-
-    arrays = _inputs(B, seed=B, shape=shape)
-    out_t = structured_admm_iterations_ref(*map(torch.from_numpy, arrays), **KW)
-    out_j = pallas(*map(jnp.asarray, _inputs(B, seed=B, shape=shape, operand="wk")), **KW,
-                   block=128, interpret=True)
+    out_t = _twin_out(B, B, shape)
+    out_j = _pallas_out(B, B, shape)
     for name, t, j in zip(("x", "zs", "zd", "ys", "yd"), out_t, out_j):
         assert t.shape == j.shape and t.dtype == torch.float32
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=2e-4, atol=2e-4,
@@ -97,8 +128,8 @@ def test_twin_matches_pallas_kernel(B, shape):
 #: the x-update one product xt = C RHS in float64 from the lane's float64
 #: C = (M_s + Ad' R Ad)^-1, at any shape (the twin takes WK at the tiled
 #: kernel's shapes). It pins the algebra of the kernel where there is no card,
-#: and stands in for the twin where a kernel of the C form is launched by name
-#: at a tiled shape.
+#: and stands in for the twin where generic or cluster is launched by name at
+#: another kernel's shape.
 folded_loop = fused_admm.folded_iterations_ref
 
 
@@ -112,10 +143,8 @@ def test_folded_loop_matches_twin(B, shape):
     twin of the shape (at the tiled shapes the Woodbury form S - WK (Ad S),
     from which it differs by the float32 rounding of S and Ad S that it
     skips)."""
-    out_f = folded_loop(*map(torch.from_numpy, _inputs(B, seed=B, shape=shape, operand="c")),
-                        **KW)
-    out_t = structured_admm_iterations_ref(*map(torch.from_numpy, _inputs(B, seed=B, shape=shape)),
-                                           **KW)
+    out_f = _model_out(folded_loop, B, B, shape, "c")
+    out_t = _twin_out(B, B, shape)
     for name, f, t in zip(("x", "zs", "zd", "ys", "yd"), out_f, out_t):
         assert f.shape == t.shape and f.dtype == torch.float32
         torch.testing.assert_close(f, t, rtol=2e-4, atol=2e-4, msg=lambda m: f"{name}: {m}")
@@ -125,12 +154,8 @@ def test_folded_loop_matches_twin(B, shape):
 def test_folded_loop_matches_pallas_kernel(B, shape):
     """The folded algebra against the JAX package's kernel itself (interpret
     mode) on the same inputs, at the bar the twin is held to."""
-    import jax.numpy as jnp
-    from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
-    out_f = folded_loop(*map(torch.from_numpy, _inputs(B, seed=B, shape=shape, operand="c")),
-                        **KW)
-    out_p = pallas(*map(jnp.asarray, _inputs(B, seed=B, shape=shape, operand="wk")),
-                   interpret=True, block=128, **KW)
+    out_f = _model_out(folded_loop, B, B, shape, "c")
+    out_p = _pallas_out(B, B, shape)
     for name, f, p in zip(("x", "zs", "zd", "ys", "yd"), out_f, out_p):
         np.testing.assert_allclose(f.numpy(), np.asarray(p), rtol=2e-4, atol=2e-4, err_msg=name)
 
@@ -139,7 +164,6 @@ def folded_layouts():
     """{(n, m_s, m_d): (T, RG, CG, P)} of the ``FoldedShape<...>`` lines of
     csrc/structured_admm_folded.cu: threads a block, the grid of register
     tiles, threads a row of C."""
-    import re
     src = (_build.SOURCES[0].parent / "structured_admm_folded.cu").read_text()
     return {tuple(v[:3]): tuple(v[3:]) for v in (
         tuple(map(int, m.split(","))) for m in re.findall(r"= FoldedShape<([\d, ]+)>;", src))}
@@ -219,16 +243,15 @@ def folded_register_loop(Ms_inv, A_sb, rho_s, qb, lbs, ubs, Ad, lbd, ubd, rho_d,
     return x, z[:, :m_s], z[:, m_s:m], y[:, :m_s], y[:, m_s:m]
 
 
-REGISTER_LOOP_CASES = [(5, FOV), (2, SWARM_FOV), (3, SWARM_CONN), (4, CONN), (6, CONN_LAMBDA2)]
+REGISTER_LOOP_CASES = [(5, FOV), (2, SWARM_FOV), (3, SWARM_CONN)]
 
 
 def test_folded_layouts_are_the_instances():
     """The model reads the instances of the kernel: the 32-agent fov and
-    connectivity shapes and the fov flagship, which take it, and the
-    connectivity and λ₂/CLF shapes, launched by name; each with a row of its
-    group for every thread (TR <= CG) and P threads a row of C."""
+    connectivity shapes and the fov flagship, which take it; each with a row
+    of its group for every thread (TR <= CG) and P threads a row of C."""
     layouts = folded_layouts()
-    assert set(layouts) == {SWARM_FOV, SWARM_CONN, FOV, CONN, CONN_LAMBDA2}
+    assert set(layouts) == {SWARM_FOV, SWARM_CONN, FOV}
     for (n, m_s, m_d), (T, RG, CG, P) in layouts.items():
         assert -(-(m_s + m_d) // RG) <= CG and RG * CG <= T and n * P <= T and T % 32 == 0
 
@@ -239,10 +262,8 @@ def test_folded_register_loop_matches_twin(B, shape):
     the bar of two float32 loops (rtol = atol = 2e-4); at the tiled shapes the
     twin is the Woodbury form, whose float32 rounding of S and Ad S the C form
     skips."""
-    out_f = folded_register_loop(
-        *map(torch.from_numpy, _inputs(B, seed=B, shape=shape, operand="c")), **KW)
-    out_t = structured_admm_iterations_ref(*map(torch.from_numpy, _inputs(B, seed=B, shape=shape)),
-                                           **KW)
+    out_f = _model_out(folded_register_loop, B, B, shape, "c")
+    out_t = _twin_out(B, B, shape)
     for name, f, t in zip(("x", "zs", "zd", "ys", "yd"), out_f, out_t):
         assert f.shape == t.shape and f.dtype == torch.float32
         torch.testing.assert_close(f, t, rtol=2e-4, atol=2e-4, msg=lambda m: f"{name}: {m}")
@@ -253,12 +274,8 @@ def test_folded_register_loop_matches_pallas_kernel(B, shape):
     """The folded kernel's summation order against the JAX package's kernel
     itself (interpret mode) on the same inputs, at the bar the twin is held
     to."""
-    import jax.numpy as jnp
-    from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
-    out_f = folded_register_loop(
-        *map(torch.from_numpy, _inputs(B, seed=B, shape=shape, operand="c")), **KW)
-    out_p = pallas(*map(jnp.asarray, _inputs(B, seed=B, shape=shape, operand="wk")),
-                   interpret=True, block=128, **KW)
+    out_f = _model_out(folded_register_loop, B, B, shape, "c")
+    out_p = _pallas_out(B, B, shape)
     for name, f, p in zip(("x", "zs", "zd", "ys", "yd"), out_f, out_p):
         np.testing.assert_allclose(f.numpy(), np.asarray(p), rtol=2e-4, atol=2e-4, err_msg=name)
 
@@ -317,10 +334,8 @@ def test_generic_loop_matches_twin(B, shape):
     float32 loops (they differ by the order of the column sums and, at the
     tiled shapes, by the float32 rounding of S and Ad S that the C form
     skips)."""
-    out_g = generic_loop(*map(torch.from_numpy, _inputs(B, seed=B, shape=shape, operand="c")),
-                         **KW)
-    out_t = structured_admm_iterations_ref(*map(torch.from_numpy, _inputs(B, seed=B, shape=shape)),
-                                           **KW)
+    out_g = _model_out(generic_loop, B, B, shape, "c")
+    out_t = _twin_out(B, B, shape)
     for name, g, t in zip(("x", "zs", "zd", "ys", "yd"), out_g, out_t):
         assert g.shape == t.shape and g.dtype == torch.float32
         torch.testing.assert_close(g, t, rtol=2e-4, atol=2e-4, msg=lambda m: f"{name}: {m}")
@@ -330,20 +345,37 @@ def test_generic_loop_matches_twin(B, shape):
 def test_generic_loop_matches_pallas_kernel(B, shape):
     """The generic kernel's algebra against the JAX package's kernel itself
     (interpret mode) on the same inputs, at the bar the twin is held to."""
-    import jax.numpy as jnp
-    from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
-    out_g = generic_loop(*map(torch.from_numpy, _inputs(B, seed=B, shape=shape, operand="c")),
-                         **KW)
-    out_p = pallas(*map(jnp.asarray, _inputs(B, seed=B, shape=shape, operand="wk")),
-                   interpret=True, block=128, **KW)
+    out_g = _model_out(generic_loop, B, B, shape, "c")
+    out_p = _pallas_out(B, B, shape)
     for name, g, p in zip(("x", "zs", "zd", "ys", "yd"), out_g, out_p):
         np.testing.assert_allclose(g.numpy(), np.asarray(p), rtol=2e-4, atol=2e-4, err_msg=name)
+
+
+def compiled_instances():
+    """[(variant, (n, m_s, m_d))] of the ``TcShape<...>`` lines of
+    csrc/structured_admm_tiled.cu and the ``FoldedShape<...>`` lines of
+    csrc/structured_admm_folded.cu: the instances compiled per shape."""
+    csrc = _build.SOURCES[0].parent
+    return [(variant, tuple(map(int, m)))
+            for variant, kind in (("tiled", "TcShape"), ("folded", "FoldedShape"))
+            for m in re.findall(rf"= {kind}<(\d+), (\d+), (\d+),",
+                                (csrc / f"structured_admm_{variant}.cu").read_text())]
+
+
+@pytest.mark.parametrize("variant,shape", compiled_instances(),
+                         ids=lambda v: "-".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_every_compiled_instance_is_reachable_by_shape(variant, shape):
+    """structured_admm_variant tries tiled, then folded: a tiled instance is
+    reachable where its shape is one of ``TILED_SHAPES`` (the shapes its
+    has-check names, which take WK), a folded instance where its shape is
+    not (else tiled takes it first). An instance no shape reaches would run
+    by name only."""
+    assert (shape in fused_admm.TILED_SHAPES) == (variant == "tiled")
 
 
 def test_variants_follow_the_kernel_enum():
     """VARIANTS is indexed by the code structured_admm_variant returns: the
     AdmmVariant enum of csrc/structured_admm.cuh, read from the source."""
-    import re
     header = (_build.SOURCES[0].parent / "structured_admm.cuh").read_text()
     enum = re.search(r"enum AdmmVariant \{([^}]*)\}", header).group(1)
     codes = {name: int(v) for name, v in re.findall(r"k(\w+) = (-?\d+)", enum)}
@@ -568,20 +600,26 @@ def test_every_team_takes_a_redesigned_kernel_on_gpu():
 def test_fov_flagship_takes_the_kernel_of_its_route_on_gpu():
     """The fov flagship (43, 127, 84), the main path, takes the kernel of its
     operand's form: folded for the lane's C (``takes_wk`` false), tiled for
-    WK; and the tiled kernel, launched by name there on WK, agrees with the
-    Woodbury twin."""
+    WK."""
     _need_gpu()
     lib = fused_admm._lib()
     assert VARIANTS[lib.structured_admm_variant(*FOV)] == \
         ("tiled" if fused_admm.takes_wk(*FOV) else "folded")
-    arrays = [torch.from_numpy(a).cuda() for a in _inputs(37, seed=25, shape=FOV, operand="wk")]
-    before = structured_admm_iterations.launches
-    out_k = fused_admm.launch_variant(lib, "tiled", arrays, **KW)
-    out_t = fused_admm.woodbury_iterations_ref(*arrays, **KW)
-    torch.cuda.synchronize()
-    assert structured_admm_iterations.launches == before     # only the wrapper counts
-    for a, b in zip(out_k, out_t):
-        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,shape,operand", [("tiled", FOV, "wk"), ("folded", CONN, "c"),
+                                                   ("folded", CONN_LAMBDA2, "c")])
+def test_launch_by_name_without_an_instance_raises_on_gpu(variant, shape, operand):
+    """tiled and folded have instances at their own shapes only: launched by
+    name at another kernel's shape (the fov flagship, folded's; the
+    connectivity and λ₂/CLF shapes, tiled's) on the operand they take, the
+    launch returns cudaErrorInvalidValue and ``launch_variant`` raises."""
+    _need_gpu()
+    arrays = [torch.from_numpy(a).cuda() for a in _inputs(3, seed=25, shape=shape,
+                                                          operand=operand)]
+    with pytest.raises(RuntimeError, match=rf"kernel \({variant}\) launch failed"):
+        fused_admm.launch_variant(fused_admm._lib(), variant, arrays, **KW)
 
 
 @pytest.mark.cuda
@@ -626,12 +664,12 @@ def test_control_step_runs_kernel_on_gpu():
     args = (State(T(pos), T(vel)), T(ref), T(blob), torch.as_tensor(mask, device="cuda"))
     ctrl = cases.torch_controller("connectivity", "cuda", torch.float32)
     outs = []
-    for use_kernel in (None, False):
+    for use_kernel in (True, False):
         before = structured_admm_iterations.launches
         outs.append(StructuredIMPC(ctrl, StructuredConfig(iters=60, use_kernel=use_kernel))
                     .optimize_batch(*args))
         torch.cuda.synchronize()
-        assert structured_admm_iterations.launches - before == (4 if use_kernel is None else 0)
+        assert structured_admm_iterations.launches - before == (4 if use_kernel else 0)
     res_k, res_t = outs
     assert bool(torch.isfinite(res_k.coeffs).all())
     torch.testing.assert_close(res_k.coeffs, res_t.coeffs, rtol=2e-4, atol=2e-4)

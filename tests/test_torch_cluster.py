@@ -21,8 +21,10 @@ are held against the twin and against the JAX package's Pallas kernel in
 interpret mode, at shapes with n above 160 (the kernel's, past every
 one-block layout) and at a 400-agent fov team's, to rtol = atol = 2e-4, the
 bar of tests/test_pallas_admm.py:53-55 between two float32 loops that sum
-in another order. On the card tests/test_torch_admm_kernel.py holds the
-kernel itself to the twin.
+in another order. The twin's, the Pallas kernel's and each model's outputs
+are computed once a (lanes, shape, iterations, layout) and shared by the
+tests that compare them (``_model_out``, ``_pallas_out``; read only). On the
+card tests/test_torch_admm_kernel.py holds the kernel itself to the twin.
 
 The slice test runs StructuredIMPC.optimize_batch of both packages on the
 CPU through their plain loops on a ring of 85 fov agents, the first team
@@ -246,14 +248,36 @@ def _inputs(B, shape, operand=None):
     return random_phase_inputs(np.random.default_rng(B), B, *shape, operand=operand)
 
 
+@functools.lru_cache(maxsize=None)
+def _model_out(loop, B, shape, iters, **layout):
+    """``loop`` (the twin or a layout model, with its ``layout``: cs, nw) on
+    ``_inputs(B, shape)`` (seed B, the shape's operand) for ``iters``
+    iterations, computed once for the tests that share it: inference
+    tensors, which refuse an in-place write."""
+    with torch.inference_mode():
+        return loop(*[torch.from_numpy(a) for a in _inputs(B, shape)], **dict(KW, iters=iters),
+                    **layout)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_out(B, shape, iters):
+    """The JAX package's Pallas kernel in interpret mode on WK of the same
+    draw, as read-only numpy arrays (cached)."""
+    import jax.numpy as jnp
+    from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
+    out = tuple(np.array(o) for o in pallas(*[jnp.asarray(a) for a in _inputs(B, shape, "wk")],
+                                            interpret=True, block=128, **dict(KW, iters=iters)))
+    for o in out:
+        o.flags.writeable = False
+    return out
+
+
 @pytest.mark.parametrize("B,shape,cs,iters", CASES)
 def test_cluster_loop_matches_twin(B, shape, cs, iters):
     """The cluster kernel's register layout against the twin, at the bar of
     two float32 loops (they differ by the order of the column and row sums)."""
-    arrays = [torch.from_numpy(a) for a in _inputs(B, shape)]
-    kw = dict(KW, iters=iters)
-    out_c = register_loop(*arrays, **kw, cs=cs, nw=kernel_warps(shape, cs))
-    out_t = structured_admm_iterations_ref(*arrays, **kw)
+    out_c = _model_out(register_loop, B, shape, iters, cs=cs, nw=kernel_warps(shape, cs))
+    out_t = _model_out(structured_admm_iterations_ref, B, shape, iters)
     for name, c, t in zip(("x", "zs", "zd", "ys", "yd"), out_c, out_t):
         assert c.shape == t.shape and c.dtype == torch.float32
         torch.testing.assert_close(c, t, rtol=2e-4, atol=2e-4, msg=lambda m: f"{name}: {m}")
@@ -264,13 +288,8 @@ def test_cluster_loop_matches_pallas_kernel(B, shape, cs, iters):
     """The cluster kernel's register layout against the JAX package's kernel
     itself (interpret mode, with the Woodbury WK of the same draw) on the same
     inputs, at the bar the twin is held to."""
-    import jax.numpy as jnp
-    from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
-    kw = dict(KW, iters=iters)
-    out_c = register_loop(*[torch.from_numpy(a) for a in _inputs(B, shape)], **kw, cs=cs,
-                          nw=kernel_warps(shape, cs))
-    out_p = pallas(*[jnp.asarray(a) for a in _inputs(B, shape, "wk")], interpret=True,
-                   block=128, **kw)
+    out_c = _model_out(register_loop, B, shape, iters, cs=cs, nw=kernel_warps(shape, cs))
+    out_p = _pallas_out(B, shape, iters)
     for name, c, p in zip(("x", "zs", "zd", "ys", "yd"), out_c, out_p):
         np.testing.assert_allclose(c.numpy(), np.asarray(p), rtol=2e-4, atol=2e-4, err_msg=name)
 
@@ -279,10 +298,8 @@ def test_cluster_loop_matches_pallas_kernel(B, shape, cs, iters):
 def test_stream_loop_matches_twin(B, shape, cs, nw, iters):
     """The streamed layout's one-pass loop against the twin, at the bar of two
     float32 loops."""
-    arrays = [torch.from_numpy(a) for a in _inputs(B, shape)]
-    kw = dict(KW, iters=iters)
-    out_s = stream_loop(*arrays, **kw, cs=cs, nw=nw)
-    out_t = structured_admm_iterations_ref(*arrays, **kw)
+    out_s = _model_out(stream_loop, B, shape, iters, cs=cs, nw=nw)
+    out_t = _model_out(structured_admm_iterations_ref, B, shape, iters)
     for name, s, t in zip(("x", "zs", "zd", "ys", "yd"), out_s, out_t):
         assert s.shape == t.shape and s.dtype == torch.float32
         torch.testing.assert_close(s, t, rtol=2e-4, atol=2e-4, msg=lambda m: f"{name}: {m}")
@@ -294,12 +311,8 @@ def test_stream_loop_matches_pallas_kernel(B, shape, cs, nw, iters):
     mode, WK of the same draw), at the bar the twin is held to. (The
     400-agent lane is held to the twin only: its Woodbury WK is an inverse
     of [4788, 4788].)"""
-    import jax.numpy as jnp
-    from mpc_cbf_tpu.ops.qp.pallas_admm import structured_admm_iterations as pallas
-    kw = dict(KW, iters=iters)
-    out_s = stream_loop(*[torch.from_numpy(a) for a in _inputs(B, shape)], **kw, cs=cs, nw=nw)
-    out_p = pallas(*[jnp.asarray(a) for a in _inputs(B, shape, "wk")], interpret=True,
-                   block=128, **kw)
+    out_s = _model_out(stream_loop, B, shape, iters, cs=cs, nw=nw)
+    out_p = _pallas_out(B, shape, iters)
     for name, s, p in zip(("x", "zs", "zd", "ys", "yd"), out_s, out_p):
         np.testing.assert_allclose(s.numpy(), np.asarray(p), rtol=2e-4, atol=2e-4, err_msg=name)
 
